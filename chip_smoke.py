@@ -12,9 +12,14 @@ Phases (any failure raises; nothing is caught and skipped):
      source, in parallel); print the build time and the card.
   2. Each kernel against its plain PyTorch version at every shape a P2
      forward gives it (recorded with forward pre-hooks), at batch 1 and 45,
-     in f32 and bf16: max abs error against the stated tolerance, and the
-     times of the kernel, the plain version and one PyTorch library call
-     (F.group_norm, F.scaled_dot_product_attention), beside the bound.
+     in f32 and bf16: max abs error against the stated tolerance, the route
+     taken (attention: bf16 tensor cores or f32 FMA), the times of the
+     kernel, the plain version and one PyTorch library call (F.group_norm,
+     F.scaled_dot_product_attention) beside the bound and the kernel's share
+     of it, each launch after the last from the host (`ms`) and, for the
+     kernel and the library call, replayed from a CUDA graph (`device_ms`:
+     the device alone); GroupNorm launched twice on one input must give the
+     same bits.
   3. The full-width FFHQ_P2 forward in f32 and one J.v of the PMP: the card
      (kernels) against the CPU (plain versions).
   4. The flagship edit at full width, bf16 network, f32 state: invert,
@@ -77,6 +82,25 @@ def cuda_ms(fn, budget_ms: float = 30.0) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time of fn() alone: reps calls captured in one CUDA graph and
+    replayed, so no host work sits between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(3):
+        g.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / (3 * reps)
+
+
 def bound(bytes_moved: float, flops: float, dtype: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -126,7 +150,7 @@ def record_p2_shapes(model):
 def phase_kernels(model):
 
     from loco_edit_tpu_torch.ops.flash_attention import (attention_plain,
-                                                         flash_attention_cuda)
+                                                         flash_attention_cuda, route)
     from loco_edit_tpu_torch.ops.groupnorm import group_norm_cuda, group_norm_plain
 
     gn_calls, attn_calls = record_p2_shapes(model)
@@ -143,18 +167,22 @@ def phase_kernels(model):
                 x = x.to(dtype).permute(0, 3, 1, 2)
                 s = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
                 bias = 0.1 * torch.randn(c, device="cuda", generator=g)
-                err = (group_norm_cuda(x, s, bias).float()
-                       - group_norm_plain(x, s, bias).float()).abs().max().item()
+                y = group_norm_cuda(x, s, bias)
+                same_bits = torch.equal(y, group_norm_cuda(x, s, bias))
+                err = (y.float() - group_norm_plain(x, s, bias).float()).abs().max().item()
                 nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
                 bms, by = bound(nbytes, 8 * x.numel(), "float32")
                 sl, bl = s.to(dtype), bias.to(dtype)
                 rows.append(dict(
                     kernel="groupnorm", dtype=dt, shape=[b, c, h, w],
+                    route="vec16-two-launch", same_bits=same_bits,
                     per_forward=gn_calls.count((c, h, w)), max_abs_err=err,
                     tol=TOL[("groupnorm", dt)],
                     ms=cuda_ms(lambda: group_norm_cuda(x, s, bias)),
                     plain_ms=cuda_ms(lambda: group_norm_plain(x, s, bias)),
                     library_ms=cuda_ms(lambda: F.group_norm(x, 32, sl, bl, 1e-5)),
+                    device_ms=graph_ms(lambda: group_norm_cuda(x, s, bias)),
+                    library_device_ms=graph_ms(lambda: F.group_norm(x, 32, sl, bl, 1e-5)),
                     bound_ms=bms, bound_by=by))
         for (heads, n, d) in sorted(set(attn_calls)):
             for b in (1, 45):
@@ -166,31 +194,62 @@ def phase_kernels(model):
                                 4 * b * heads * n * n * d, dt)
                 rows.append(dict(
                     kernel="flash_attention", dtype=dt, shape=[b, heads, n, d],
+                    route=route(dtype),
                     per_forward=attn_calls.count((heads, n, d)), max_abs_err=err,
                     tol=TOL[("flash_attention", dt)],
                     ms=cuda_ms(lambda: flash_attention_cuda(q, k, v)),
                     plain_ms=cuda_ms(lambda: attention_plain(q, k, v)),
                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                         q, k, v, scale=d ** -0.5)),
+                    device_ms=graph_ms(lambda: flash_attention_cuda(q, k, v)),
+                    library_device_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, scale=d ** -0.5)),
                     bound_ms=bms, bound_by=by))
     for r in rows:
+        r["bound_share"] = r["bound_ms"] / r["ms"]
         log(f"[2 kernels] {r['kernel']:15s} {r['dtype']:8s} {str(r['shape']):22s} "
-            f"x{r['per_forward']}/fwd err {r['max_abs_err']:.2e} (tol {r['tol']:.0e}) "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
-            f"library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"{r['route']:16s} x{r['per_forward']}/fwd err {r['max_abs_err']:.2e} "
+            f"(tol {r['tol']:.0e}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
+            f"library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"share {r['bound_share']:.3f}; device only: kernel {r['device_ms']:.4f} "
+            f"library {r['library_device_ms']:.4f}")
     bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    unstable = [r["shape"] for r in rows if r.get("same_bits") is False]
+    if unstable:
+        fail(f"GroupNorm gave other bits on a second launch at {unstable}")
+    for name in ("groupnorm", "flash_attention"):
+        for b in (1, 45):
+            tot = forward_sums(rows, name, b)
+            log(f"[2 kernels] {name} bf16 P2 forward at batch {b}: kernel "
+                f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, library "
+                f"{tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}; bound share "
+                f"{tot['bound_ms'] / tot['ms']:.3f}, kernel / library "
+                f"{tot['ms'] / tot['library_ms']:.2f}; device only: kernel "
+                f"{tot['device_ms']:.4f} ms, library {tot['library_device_ms']:.4f}, "
+                f"bound share {tot['bound_ms'] / tot['device_ms']:.3f}, kernel / library "
+                f"{tot['device_ms'] / tot['library_device_ms']:.2f}")
     return rows
 
 
+def forward_sums(rows, name, batch):
+    """Sums over the calls of one P2 forward in bf16 (the flagship network's
+    dtype) at one batch size."""
+    mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"
+            and r["shape"][0] == batch]
+    return {k: sum(r[k] * r["per_forward"] for r in mine)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                      "library_device_ms")}
+
+
 def summarize(rows, name, source, replaces, launches):
-    """One kernels-line entry: the sums over the calls of one P2 forward at
-    batch 1 in bf16 (the flagship network's dtype)."""
+    """One kernels-line entry: the sums over the calls of one P2 forward in
+    bf16 at batch 1, and at batch 45 under the keys ending in _b45."""
     mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"
             and r["shape"][0] == 1]
-    tot = {k: sum(r[k] * r["per_forward"] for r in mine)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    tot = forward_sums(rows, name, 1)
+    b45 = forward_sums(rows, name, 45)
     by_bytes = sum(r["per_forward"] * r["bound_ms"] for r in mine
                    if r["bound_by"] == "bytes")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -199,7 +258,10 @@ def summarize(rows, name, source, replaces, launches):
                                if r["kernel"] == name and r["dtype"] == "bfloat16"),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
-            "library_ms": tot["library_ms"]}
+            "library_ms": tot["library_ms"],
+            "device_ms": tot["device_ms"], "library_device_ms": tot["library_device_ms"],
+            **{f"{k}_b45": b45[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                            "device_ms", "library_device_ms")}}
 
 
 def phase_forward_vs_cpu(den):
@@ -342,10 +404,10 @@ def main() -> int:
 
     kernels = [
         summarize(rows, "groupnorm", "loco_edit_tpu_torch/csrc/groupnorm.cu",
-                  "loco_edit_tpu/ops/pallas/groupnorm_stats.py:69",
+                  "loco_edit_tpu/ops/pallas/groupnorm_stats.py:70",
                   launches["groupnorm"]),
         summarize(rows, "flash_attention", "loco_edit_tpu_torch/csrc/flash_attention.cu",
-                  "loco_edit_tpu/ops/pallas/flash_attention.py:55",
+                  "loco_edit_tpu/ops/pallas/flash_attention.py:56",
                   launches["flash_attention"]),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// Flash attention forward (online softmax) for sm_90a.
+// Flash attention forward (online softmax) for sm_90a, two routes chosen by
+// dtype: bf16 on the tensor cores, f32 on the FMA units.
 //
 // Replaces: loco_edit_tpu/ops/pallas/flash_attention.py::flash_attention
 // (kernel body _flash_kernel): softmax((q * d^-1/4)(k * d^-1/4)^T) v with the
@@ -6,18 +7,32 @@
 //
 // What bounds it on the H100: bytes. At the P2 shapes, (B, 8, 256, 64) and
 // (B, 8, 64, 64), one (batch, head) reads 3 * N * D and writes N * D values
-// for 4 * N^2 * D flops: 256 flops per value read at N = 256, below the
-// ~295 flop/byte ridge of the bf16 tensor cores, and far below it at N = 64.
-// In f32 outside the tensor cores (67 TFLOP/s) the same work is bound by
-// operations instead.
+// for 4 * N^2 * D flops: ~128 flops per byte at N = 256, below the ~295
+// flop/byte ridge of the bf16 tensor cores, and far below it at N = 64.
+// mma.sync (not wgmma) is enough to stay under the byte bound.
 //
-// What the design does about it: q, k and v are each read once from device
-// memory and the (N, N) logits never leave the block. One block per
-// (batch * head, 32-row query tile); K/V tiles of 64 keys stream through
-// shared memory in f32, each warp keeps a running (max, sum, acc) for 8 query
-// rows in registers. Any N: the ragged last key tile is masked to -inf and
-// the ragged last query tile is skipped. D is a template parameter
-// (16, 32, 64, 128). Plain FMA arithmetic: a wgmma/TMA pipeline is later work.
+// bf16 route (the model's dtype), FlashAttention-2 style:
+//   - One block of 4 warps per (batch * head, 64-row query tile); each warp
+//     owns 16 query rows. S = Q K^T and O += P V run as
+//     mma.sync.m16n8k16 bf16 products with f32 accumulators; Q, K and V
+//     fragments come from shared memory by ldmatrix (ldmatrix.trans for V).
+//   - Q and 64-key K/V tiles are staged in bf16 by 16-byte cp.async, K/V
+//     double-buffered, rows padded by 16 bytes so ldmatrix has no bank
+//     conflicts. Each thread rounds q * d^-1/4 and k * d^-1/4 to bf16 in
+//     place on the chunks it copied, as the plain version rounds qs and ks.
+//   - The online softmax (row max, row sum, rescale) stays in f32 registers
+//     with quad shuffles; P is rounded to bf16 in registers and fed as the A
+//     operand of P V; the final division by the row sum is in f32. The
+//     output goes through shared memory for 16-byte stores.
+//   - Any N: the ragged last key tile is zero-filled by cp.async and masked
+//     to -inf; query rows >= N are not stored. Strided (head-split) views
+//     are taken as they are; the wrapper checks 16-byte alignment.
+//
+// f32 route (explicitly for float32 inputs; the f32 checks take it, the bf16
+// model never does): scalar FMA loops from f32 shared memory. TF32 tensor
+// cores would not hold the 1e-3 agreement of the f32 network with the CPU.
+// One block per (batch * head, 32-row query tile), each warp keeps a running
+// (max, sum, acc) for 8 query rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -25,43 +40,9 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockQ = 32;                 // query rows per block
-constexpr int kRowsPerWarp = kBlockQ / kWarps;
-constexpr int kBlockK = 64;                 // keys per shared-memory tile
-constexpr int kKeysPerLane = kBlockK / 32;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// q * scale rounded to the input dtype, as the plain version computes it.
-template <typename T>
-__device__ __forceinline__ float scaled(T v, float scale);
-template <>
-__device__ __forceinline__ float scaled<float>(float v, float scale) {
-  return v * scale;
-}
-template <>
-__device__ __forceinline__ float scaled<__nv_bfloat16>(__nv_bfloat16 v,
-                                                       float scale) {
-  return __bfloat162float(__float2bfloat16(__bfloat162float(v) * scale));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+struct Strides {
+  long long b, h, n;  // element strides; the head dim has stride 1
+};
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -73,9 +54,321 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-struct Strides {
-  long long b, h, n;  // element strides; the head dim has stride 1
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores.
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 128;    // 4 warps x 16 query rows
+constexpr int kBlockQ = 64;
+constexpr int kBlockK = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int kStride = D + 8;              // elements, 16 B padding
+  static constexpr int kElems = 64 * kStride;        // one 64-row tile
+  static constexpr int kSmemBytes = 5 * kElems * 2;  // Q, K[2], V[2]
 };
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes = 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// Start the copies of up to 64 rows of D values into a padded tile; rows at
+// or past `rows` are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long row_stride, int rows,
+                                          int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r < rows;
+    cp_async16(dst + r * Tile<D>::kStride + c * 8,
+               ok ? src + r * row_stride + c * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// Round x * scale to bf16 in place, on the chunks this thread copied (its
+// own cp.async results are visible to it after the wait).
+template <int D>
+__device__ __forceinline__ void scale_tile(bf16* t, float scale, int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    uint4* p = reinterpret_cast<uint4*>(t + (i / kChunks) * Tile<D>::kStride +
+                                        (i % kChunks) * 8);
+    uint4 u = *p;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    *p = u;
+  }
+}
+
+// grid (ceil(N / 64), B * H), block 128.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          int heads, int n, Strides sq, Strides sk, Strides sv,
+                          Strides so, float scale) {
+  using T = Tile<D>;
+  constexpr int kDTiles = D / 8;     // 8-wide n-tiles of O
+  constexpr int kKSteps = D / 16;    // 16-deep k-steps of Q K^T
+  constexpr int kKeyTiles = kBlockK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + T::kElems;         // [2][64][D + 8]
+  bf16* vs = ks + 2 * T::kElems;     // [2][64][D + 8]
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;            // fragment row within 8
+  const int t4 = lane % 4;           // fragment column pair
+  const int mat = lane / 8, r8 = lane % 8;  // ldmatrix: matrix, row address
+
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  bf16* ob = o + b * so.b + h * so.h;
+  const int num_tiles = (n + kBlockK - 1) / kBlockK;
+
+  load_tile<D>(qs, qb + q0 * sq.n, sq.n, n - q0, tid);
+  load_tile<D>(ks, kb, sk.n, n, tid);
+  load_tile<D>(vs, vb, sv.n, n, tid);
+  cp_async_commit();
+
+  unsigned qf[kKSteps][4];
+  float acc[kDTiles][4];
+  float m[2] = {-INFINITY, -INFINITY};   // rows g and g + 8
+  float l[2] = {0.f, 0.f};               // this thread's share of the row sums
+#pragma unroll
+  for (int i = 0; i < kDTiles; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int t = 0; t < num_tiles; ++t) {
+    const int cur = t & 1;
+    const int j0 = t * kBlockK;
+    if (t + 1 < num_tiles) {
+      const int j1 = j0 + kBlockK;
+      load_tile<D>(ks + (cur ^ 1) * T::kElems, kb + j1 * sk.n, sk.n, n - j1, tid);
+      load_tile<D>(vs + (cur ^ 1) * T::kElems, vb + j1 * sv.n, sv.n, n - j1, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (t == 0) scale_tile<D>(qs, scale, tid);
+    scale_tile<D>(ks + cur * T::kElems, scale, tid);
+    __syncthreads();
+
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        ldsm_x4(qf[kk], qs + (warp * 16 + lane % 16) * T::kStride + kk * 16 +
+                            (lane / 16) * 8);
+    }
+    const bf16* kt = ks + cur * T::kElems;
+    const bf16* vt = vs + cur * T::kElems;
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
+    float s[kKeyTiles][4];
+#pragma unroll
+    for (int i = 0; i < kKeyTiles; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kKeyTiles / 2; ++jj) {
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        unsigned bfr[4];
+        ldsm_x4(bfr, kt + (jj * 16 + (mat / 2) * 8 + r8) * T::kStride +
+                         kk * 16 + (mat % 2) * 8);
+        mma_bf16(s[2 * jj], qf[kk], bfr[0], bfr[1]);
+        mma_bf16(s[2 * jj + 1], qf[kk], bfr[2], bfr[3]);
+      }
+    }
+
+    if (j0 + kBlockK > n) {          // ragged last tile
+#pragma unroll
+      for (int i = 0; i < kKeyTiles; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + i * 8 + 2 * t4 + (e & 1) >= n) s[i][e] = -INFINITY;
+    }
+
+    // Online softmax in f32 for rows g (e = 0, 1) and g + 8 (e = 2, 3).
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kKeyTiles; ++i) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[i][0], s[i][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[i][2], s[i][3]));
+    }
+    float alpha[2], mscaled[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f((m[r] - mx[r]) * kLog2e);
+      mscaled[r] = mx[r] * kLog2e;
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kKeyTiles; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[i][e] = exp2f(fmaf(s[i][e], kLog2e, -mscaled[e / 2]));
+        l[e / 2] += s[i][e];
+      }
+#pragma unroll
+    for (int i = 0; i < kDTiles; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e / 2];
+
+    // O += P V, P rounded to bf16 as the A operand.
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int d0 = 0; d0 < D; d0 += 16) {
+        unsigned bfr[4];
+        ldsm_x4_trans(bfr, vt + (kk * 16 + (mat % 2) * 8 + r8) * T::kStride +
+                               d0 + (mat / 2) * 8);
+        mma_bf16(acc[d0 / 8], pa, bfr[0], bfr[1]);
+        mma_bf16(acc[d0 / 8 + 1], pa, bfr[2], bfr[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for the next prefetch
+  }
+
+  // Row sums across the quad, divide in f32, stage the warp's 16 rows in its
+  // own rows of the Q tile and store them with 16-byte writes.
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+  }
+  bf16* stage = qs + warp * 16 * T::kStride;
+#pragma unroll
+  for (int i = 0; i < kDTiles; ++i) {
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * T::kStride + i * 8 + 2 * t4) =
+        __floats2bfloat162_rn(acc[i][0] * inv[0], acc[i][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * T::kStride + i * 8 +
+                                       2 * t4) =
+        __floats2bfloat162_rn(acc[i][2] * inv[1], acc[i][3] * inv[1]);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = i % kChunks;
+    const int row = q0 + warp * 16 + r;
+    if (row < n)
+      *reinterpret_cast<uint4*>(ob + row * so.n + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * T::kStride + c * 8);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int heads, int n, Strides sq, Strides sk, Strides sv, Strides so,
+           float scale, cudaStream_t stream) {
+  constexpr int smem = Tile<D>::kSmemBytes;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid((n + kBlockQ - 1) / kBlockQ, b * heads);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), heads, n, sq, sk, sv,
+      so, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// f32 route: FMA loops on the SIMT cores.
+
+namespace simt {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = 32;                 // query rows per block
+constexpr int kRowsPerWarp = kBlockQ / kWarps;
+constexpr int kBlockK = 64;                 // keys per shared-memory tile
+constexpr int kKeysPerLane = kBlockK / 32;
 
 template <int D>
 constexpr int smem_floats() {
@@ -83,12 +376,12 @@ constexpr int smem_floats() {
 }
 
 // grid (ceil(N / 32), B * H), block 128.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int heads,
-                     int n, Strides sq, Strides sk, Strides sv, Strides so,
-                     float scale) {
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         int heads, int n, Strides sq, Strides sk, Strides sv,
+                         Strides so, float scale) {
   constexpr int kDimsPerLane = (D + 31) / 32;
   extern __shared__ float smem[];
   float* qs = smem;                        // [kBlockQ][D]
@@ -103,14 +396,14 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  T* ob = o + b * so.b + h * so.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  float* ob = o + b * so.b + h * so.h;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    qs[i] = (q0 + r < n) ? scaled<T>(qb[(q0 + r) * sq.n + d], scale) : 0.f;
+    qs[i] = (q0 + r < n) ? qb[(q0 + r) * sq.n + d] * scale : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
@@ -127,9 +420,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < kBlockK * D; i += kThreads) {
       const int j = i / D, d = i % D;
       const bool valid = j0 + j < n;
-      ks[j * (D + 1) + d] =
-          valid ? scaled<T>(kb[(j0 + j) * sk.n + d], scale) : 0.f;
-      vs[j * D + d] = valid ? to_f32(vb[(j0 + j) * sv.n + d]) : 0.f;
+      ks[j * (D + 1) + d] = valid ? kb[(j0 + j) * sk.n + d] * scale : 0.f;
+      vs[j * D + d] = valid ? vb[(j0 + j) * sv.n + d] : 0.f;
     }
     __syncthreads();
 
@@ -187,12 +479,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < kDimsPerLane; ++e) {
       const int d = lane + 32 * e;
-      if (d < D) ob[(q0 + row) * so.n + d] = from_f32<T>(acc[r][e] * inv_l);
+      if (d < D) ob[(q0 + row) * so.n + d] = acc[r][e] * inv_l;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int heads, int n, Strides sq, Strides sk, Strides sv, Strides so,
            float scale, cudaStream_t stream) {
@@ -200,37 +492,47 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const dim3 grid((n + kBlockQ - 1) / kBlockQ, b * heads);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), heads, n, sq, sk, sv, so,
-      scale);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), heads, n, sq, sk,
+      sv, so, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+}  // namespace simt
+
+template <bool kBf16>
 int dispatch(int d, const void* q, const void* k, const void* v, void* o,
              int b, int heads, int n, Strides sq, Strides sk, Strides sv,
              Strides so, float scale, cudaStream_t stream) {
+#define LOCO_ATTN_CASE(D)                                                     \
+  case D:                                                                     \
+    return kBf16 ? tc::launch<D>(q, k, v, o, b, heads, n, sq, sk, sv, so,     \
+                                 scale, stream)                               \
+                 : simt::launch<D>(q, k, v, o, b, heads, n, sq, sk, sv, so,    \
+                                  scale, stream);
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, heads, n, sq, sk, sv, so, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, heads, n, sq, sk, sv, so, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, heads, n, sq, sk, sv, so, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, heads, n, sq, sk, sv, so, scale, stream);
+    LOCO_ATTN_CASE(16)
+    LOCO_ATTN_CASE(32)
+    LOCO_ATTN_CASE(64)
+    LOCO_ATTN_CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef LOCO_ATTN_CASE
 }
 
 }  // namespace
 
 // q, k, v, o: (B, H, N, D) with element strides (b, h, n) each and a head
-// dim of stride 1; f32 (is_bf16 = 0) or bf16 (is_bf16 = 1). D in
-// {16, 32, 64, 128}. Returns cudaGetLastError().
+// dim of stride 1; f32 (is_bf16 = 0, FMA route) or bf16 (is_bf16 = 1,
+// tensor-core route: pointers 16-byte aligned, strides multiples of 8).
+// D in {16, 32, 64, 128}. Returns cudaGetLastError().
 extern "C" int loco_flash_attention(
     const void* q, const void* k, const void* v, void* o, int b, int heads,
     int n, int d, long long sqb, long long sqh, long long sqn, long long skb,
@@ -241,7 +543,6 @@ extern "C" int loco_flash_attention(
       so{sob, soh, son};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(d, q, k, v, o, b, heads, n, sq, sk, sv, so,
-                                   scale, s);
-  return dispatch<float>(d, q, k, v, o, b, heads, n, sq, sk, sv, so, scale, s);
+    return dispatch<true>(d, q, k, v, o, b, heads, n, sq, sk, sv, so, scale, s);
+  return dispatch<false>(d, q, k, v, o, b, heads, n, sq, sk, sv, so, scale, s);
 }

@@ -5,185 +5,272 @@
 // sum-of-squares that feed ops/norms.py::group_norm_f32. This file computes
 // the whole group_norm_f32: statistics, group reduction and the normalize +
 // affine pass, with the same formula (var = max(E[x^2] - mean^2, 0) in f32,
-// rstd = rsqrt(var + eps)).
+// rstd = 1 / sqrt(var + eps)).
 //
 // What bounds it on the H100: bytes. At the P2 shapes (C = 128..1024 at
 // 256^2..8^2 pixels) it does ~5 flops per element and must read x twice
-// (once for the statistics, once to normalize) and write y once; at 3.35 TB/s
-// a 256x256x128 bf16 activation (16 MiB) costs ~5 us per pass.
+// (once for the statistics, once to normalize) and write y once: three
+// streams where the bound counts two, so it can reach at most 2/3 of it.
 //
-// What the design does about it:
-//   - The TPU kernel carried its (B, C) accumulators across a sequential grid.
-//     Blocks here run in parallel, so pass 1 gives every block its own chunk
-//     of pixels and 32 channels, and writes per-chunk partial sums; pass 2
-//     reduces the partials of one (batch, group) in a fixed tree order. No
-//     float atomics: the result is the same from run to run.
-//   - Pass 1 reads 32 neighbouring channels per warp row (coalesced) and
-//     splits the pixels over many blocks, so even batch 1 at 32 groups fills
-//     the card instead of 32 blocks.
-//   - Pass 3 is a grid-stride elementwise pass that writes the input dtype.
-//   Later work: vector loads, fusing SiLU and the ResBlock scale-shift into
-//   pass 3, and keeping small tensors in shared memory for a single read.
+// What the design does about it, in two launches:
+//   - Every thread moves 16 bytes per load and store (8 bf16 or 4 f32
+//     channels); a block is (C / vec) x rows threads, so a warp reads whole
+//     contiguous runs of pixels, and each thread starts kUnroll loads before
+//     it uses any of them.
+//   - Launch 1 (statistics): grid (chunks, B). Each block sums its chunk of
+//     pixels per channel in registers, reduces rows and then the channels of
+//     each group in shared memory in a fixed order, and writes per-chunk
+//     group partials. The TPU kernel carried its accumulators across a
+//     sequential grid; here the last block to finish for a batch element
+//     (a __threadfence + integer atomicAdd ticket) reduces that element's
+//     partials in a fixed order and writes mean and rstd, then resets the
+//     ticket to 0 for the next call. No float atomics: the same bits every
+//     run, whichever block comes last.
+//   - Launch 2 (normalize): grid (chunks, B). Each thread is fixed on its
+//     channels and keeps their mean, rstd, scale and bias in registers
+//     outside the pixel loop: no division or modulo per element.
+//   - The chunk (pixels per block) is chosen by the wrapper
+//     (ops/groupnorm.py::launch_geometry) so that batch 1 still fills the
+//     card.
+//   Later work: fusing SiLU and the ResBlock scale-shift into launch 2, and
+//   one read for tensors that fit a thread-block cluster's shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kCols = 32;  // channels per block in pass 1 (one warp row)
-constexpr int kRows = 8;   // warp rows per block in pass 1
-constexpr int kFinalizeThreads = 256;
+constexpr int kUnroll = 4;  // 16-byte loads in flight per thread
+constexpr int kSubsets = 8; // chunk subsets per group in the final reduce
 
 template <typename T>
-__device__ __forceinline__ float to_f32(T v);
+struct Vec;
 template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Pass 1. grid (num_chunks, C / 32, B), block (32, 8): partial per-channel
-// sum and sum of squares over pixels [chunk * k, chunk * (k + 1)).
-template <typename T>
-__global__ void gn_partial_kernel(const T* __restrict__ x,
-                                  float* __restrict__ part_s,
-                                  float* __restrict__ part_ss, int hw, int c,
-                                  int chunk) {
-  const int ch = blockIdx.y * kCols + threadIdx.x;
-  const int b = blockIdx.z;
-  const int p0 = blockIdx.x * chunk;
-  const int p1 = min(p0 + chunk, hw);
-  const T* xb = x + (size_t)b * hw * c;
-  float s = 0.f, ss = 0.f;
-  for (int p = p0 + threadIdx.y; p < p1; p += kRows) {
-    const float v = to_f32(xb[(size_t)p * c + ch]);
-    s += v;
-    ss += v * v;
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ static void unpack(const uint4& u, float (&f)[4]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
   }
-  __shared__ float sh_s[kRows][kCols + 1];
-  __shared__ float sh_ss[kRows][kCols + 1];
-  sh_s[threadIdx.y][threadIdx.x] = s;
-  sh_ss[threadIdx.y][threadIdx.x] = ss;
-  __syncthreads();
-  if (threadIdx.y == 0) {
-    for (int r = 1; r < kRows; ++r) {
-      s += sh_s[r][threadIdx.x];
-      ss += sh_ss[r][threadIdx.x];
+  __device__ static uint4 pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(const uint4& u, float (&f)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 p = __bfloat1622float2(h[j]);
+      f[2 * j] = p.x;
+      f[2 * j + 1] = p.y;
     }
-    const size_t o = ((size_t)b * gridDim.x + blockIdx.x) * c + ch;
-    part_s[o] = s;
-    part_ss[o] = ss;
   }
-}
+  __device__ static uint4 pack(const float (&f)[8]) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+    return u;
+  }
+};
 
-// Pass 2. grid (G, B), block 256: reduce one (batch, group) in a fixed order,
-// then mean and rstd exactly as group_norm_f32 forms them.
-__global__ void gn_finalize_kernel(const float* __restrict__ part_s,
-                                   const float* __restrict__ part_ss,
-                                   float* __restrict__ mean,
-                                   float* __restrict__ rstd, int num_chunks,
-                                   int c, int groups, float n, float eps) {
-  const int g = blockIdx.x;
+// Launch 1. grid (chunks, B), block (C / vec, rows). part: per-chunk group
+// sums then sums of squares, each (B, chunks, G); stats: mean (B, G) then
+// rstd (B, G); tickets: (B,) ints, 0 on entry and on exit.
+template <typename T>
+__global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
+                                float* __restrict__ stats, int* __restrict__ tickets,
+                                int hw, int c, int groups, int chunk, float eps) {
+  constexpr int kVec = Vec<T>::kN;
+  extern __shared__ float sh[];
+  __shared__ bool is_last;
+  const int rows = blockDim.y;
+  const int nthreads = blockDim.x * rows;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
-  const int cg = c / groups;
-  const int total = num_chunks * cg;
-  float s = 0.f, ss = 0.f;
-  for (int i = threadIdx.x; i < total; i += kFinalizeThreads) {
-    const int k = i / cg;
-    const int ch = g * cg + i % cg;
-    const size_t o = ((size_t)b * num_chunks + k) * c + ch;
-    s += part_s[o];
-    ss += part_ss[o];
-  }
-  __shared__ float sh_s[kFinalizeThreads];
-  __shared__ float sh_ss[kFinalizeThreads];
-  sh_s[threadIdx.x] = s;
-  sh_ss[threadIdx.x] = ss;
-  __syncthreads();
-  for (int stride = kFinalizeThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      sh_s[threadIdx.x] += sh_s[threadIdx.x + stride];
-      sh_ss[threadIdx.x] += sh_ss[threadIdx.x + stride];
+  const int nb = gridDim.y;
+  const int nchunks = gridDim.x;
+  const int ch0 = threadIdx.x * kVec;
+  const int p1 = min((blockIdx.x + 1) * chunk, hw);
+  const T* xb = x + (size_t)b * hw * c + ch0;
+
+  float s[kVec], ss[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) s[j] = ss[j] = 0.f;
+  for (int p = blockIdx.x * chunk + threadIdx.y; p < p1; p += rows * kUnroll) {
+    uint4 u[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int pk = p + k * rows;
+      u[k] = pk < p1 ? __ldg(reinterpret_cast<const uint4*>(xb + (size_t)pk * c))
+                     : make_uint4(0, 0, 0, 0);
     }
-    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      float f[kVec];
+      Vec<T>::unpack(u[k], f);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        s[j] += f[j];
+        ss[j] += f[j] * f[j];
+      }
+    }
   }
-  if (threadIdx.x == 0) {
-    const float m = sh_s[0] / n;
-    const float var = fmaxf(sh_ss[0] / n - m * m, 0.f);
-    mean[b * groups + g] = m;
-    rstd[b * groups + g] = rsqrtf(var + eps);
+
+  // Rows, then the channels of each group, in a fixed order.
+  float* sh_s = sh;                 // [rows][C]
+  float* sh_ss = sh + rows * c;
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    sh_s[threadIdx.y * c + ch0 + j] = s[j];
+    sh_ss[threadIdx.y * c + ch0 + j] = ss[j];
   }
+  __syncthreads();
+  for (int ch = tid; ch < c; ch += nthreads) {
+    float a = sh_s[ch], a2 = sh_ss[ch];
+    for (int r = 1; r < rows; ++r) {
+      a += sh_s[r * c + ch];
+      a2 += sh_ss[r * c + ch];
+    }
+    sh_s[ch] = a;                   // row 0 of column ch: only this thread
+    sh_ss[ch] = a2;
+  }
+  __syncthreads();
+  const int cg = c / groups;
+  float* part_s = part;
+  float* part_ss = part + (size_t)nb * nchunks * groups;
+  for (int g = tid; g < groups; g += nthreads) {
+    float a = 0.f, a2 = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      a += sh_s[g * cg + j];
+      a2 += sh_ss[g * cg + j];
+    }
+    const size_t o = ((size_t)b * nchunks + blockIdx.x) * groups + g;
+    part_s[o] = a;
+    part_ss[o] = a2;
+    __threadfence();                // partials visible before the ticket
+  }
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&tickets[b], 1) == nchunks - 1;
+  __syncthreads();
+  if (!is_last) return;
+
+  // The last block of element b: reduce its chunks' partials in a fixed
+  // order (subset k sums chunks k, k + 8, ...; then the 8 subsets in order).
+  __threadfence();
+  float* fs = sh;                   // [G][kSubsets], shared memory is free now
+  float* fss = sh + groups * kSubsets;
+  for (int i = tid; i < groups * kSubsets; i += nthreads) {
+    const int g = i / kSubsets;
+    float a = 0.f, a2 = 0.f;
+    for (int k = i % kSubsets; k < nchunks; k += kSubsets) {
+      const size_t o = ((size_t)b * nchunks + k) * groups + g;
+      a += __ldcg(part_s + o);
+      a2 += __ldcg(part_ss + o);
+    }
+    fs[i] = a;
+    fss[i] = a2;
+  }
+  __syncthreads();
+  const float n = (float)hw * (float)cg;
+  for (int g = tid; g < groups; g += nthreads) {
+    float a = 0.f, a2 = 0.f;
+    for (int k = 0; k < kSubsets; ++k) {
+      a += fs[g * kSubsets + k];
+      a2 += fss[g * kSubsets + k];
+    }
+    const float mean = a / n;
+    const float var = fmaxf(a2 / n - __fmul_rn(mean, mean), 0.f);
+    stats[b * groups + g] = mean;
+    stats[(nb + b) * groups + g] = 1.f / sqrtf(var + eps);
+  }
+  if (tid == 0) tickets[b] = 0;
 }
 
-// Pass 3. Elementwise: y = (x - mean) * rstd * scale + bias, in x's dtype.
+// Launch 2. grid (chunks, B), block (C / vec, rows):
+// y = (x - mean) * rstd * scale + bias, in x's dtype.
 template <typename T>
 __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
-                                const float* __restrict__ mean,
-                                const float* __restrict__ rstd,
+                                const float* __restrict__ stats,
                                 const float* __restrict__ scale,
-                                const float* __restrict__ bias,
-                                long long total, long long hwc, int c, int cg,
-                                int groups) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += step) {
-    const int ch = (int)(i % c);
-    const int bg = (int)(i / hwc) * groups + ch / cg;
-    const float v = (to_f32(x[i]) - mean[bg]) * rstd[bg];
-    y[i] = from_f32<T>(v * scale[ch] + bias[ch]);
+                                const float* __restrict__ bias, int hw, int c,
+                                int groups, int chunk) {
+  constexpr int kVec = Vec<T>::kN;
+  const int rows = blockDim.y;
+  const int b = blockIdx.y;
+  const int ch0 = threadIdx.x * kVec;
+  const int cg = c / groups;
+  float mu[kVec], rs[kVec], sc[kVec], bi[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    const int g = (ch0 + j) / cg;
+    mu[j] = stats[b * groups + g];
+    rs[j] = stats[(gridDim.y + b) * groups + g];
+    sc[j] = scale[ch0 + j];
+    bi[j] = bias[ch0 + j];
+  }
+  const int p1 = min((blockIdx.x + 1) * chunk, hw);
+  const size_t base = (size_t)b * hw * c + ch0;
+  for (int p = blockIdx.x * chunk + threadIdx.y; p < p1; p += rows * kUnroll) {
+    uint4 u[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int pk = p + k * rows;
+      if (pk < p1)
+        u[k] = __ldcs(reinterpret_cast<const uint4*>(x + base + (size_t)pk * c));
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int pk = p + k * rows;
+      if (pk >= p1) break;
+      float f[kVec];
+      Vec<T>::unpack(u[k], f);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) f[j] = (f[j] - mu[j]) * rs[j] * sc[j] + bi[j];
+      *reinterpret_cast<uint4*>(y + base + (size_t)pk * c) = Vec<T>::pack(f);
+    }
   }
 }
 
 template <typename T>
 int launch(const void* x, void* y, const float* scale, const float* bias,
-           float* work, int b, int hw, int c, int groups, float eps, int chunk,
-           cudaStream_t stream) {
-  const int num_chunks = (hw + chunk - 1) / chunk;
-  float* part_s = work;
-  float* part_ss = part_s + (size_t)b * num_chunks * c;
-  float* mean = part_ss + (size_t)b * num_chunks * c;
-  float* rstd = mean + (size_t)b * groups;
-
-  gn_partial_kernel<T><<<dim3(num_chunks, c / kCols, b), dim3(kCols, kRows), 0,
-                         stream>>>(static_cast<const T*>(x), part_s, part_ss,
-                                   hw, c, chunk);
-  const float n = (float)hw * (float)(c / groups);
-  gn_finalize_kernel<<<dim3(groups, b), kFinalizeThreads, 0, stream>>>(
-      part_s, part_ss, mean, rstd, num_chunks, c, groups, n, eps);
-  const long long total = (long long)b * hw * c;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;
-  gn_apply_kernel<T><<<(int)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), mean, rstd, scale, bias,
-      total, (long long)hw * c, c, c / groups, groups);
+           float* work, int* tickets, int b, int hw, int c, int groups,
+           float eps, int rows, int chunk, cudaStream_t stream) {
+  const int nchunks = (hw + chunk - 1) / chunk;
+  float* part = work;
+  float* stats = work + 2 * (size_t)b * nchunks * groups;
+  const dim3 grid(nchunks, b), block(c / Vec<T>::kN, rows);
+  const int fin = 2 * groups * kSubsets, red = 2 * rows * c;
+  const size_t smem = (fin > red ? fin : red) * sizeof(float);
+  gn_stats_kernel<T><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(x), part, stats, tickets, hw, c, groups, chunk, eps);
+  gn_apply_kernel<T><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), stats, scale, bias, hw, c,
+      groups, chunk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, y: (B, H*W, C) contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
-// scale, bias: (C,) f32. work: f32 scratch of
-// 2 * B * ceil(HW / chunk) * C + 2 * B * groups floats.
+// x, y: (B, H*W, C) contiguous and 16-byte aligned, f32 (is_bf16 = 0) or
+// bf16 (is_bf16 = 1). scale, bias: (C,) f32. work: f32 scratch of
+// 2 * B * ceil(HW / chunk) * groups + 2 * B * groups floats. tickets: B ints,
+// all 0 (left 0). rows and chunk from ops/groupnorm.py::launch_geometry.
 // Requires C % 32 == 0 and C % groups == 0. Returns cudaGetLastError().
 extern "C" int loco_group_norm(const void* x, void* y, const float* scale,
-                               const float* bias, float* work, int b, int hw,
-                               int c, int groups, float eps, int chunk,
-                               int is_bf16, void* stream) {
+                               const float* bias, float* work, int* tickets,
+                               int b, int hw, int c, int groups, float eps,
+                               int rows, int chunk, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, y, scale, bias, work, b, hw, c, groups,
-                                 eps, chunk, s);
-  return launch<float>(x, y, scale, bias, work, b, hw, c, groups, eps, chunk,
-                       s);
+    return launch<__nv_bfloat16>(x, y, scale, bias, work, tickets, b, hw, c,
+                                 groups, eps, rows, chunk, s);
+  return launch<float>(x, y, scale, bias, work, tickets, b, hw, c, groups, eps,
+                       rows, chunk, s);
 }

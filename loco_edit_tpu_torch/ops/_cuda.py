@@ -35,7 +35,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "loco_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "loco_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                        _P],
     "loco_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12
                             + [_F, _I, _P],
 }
@@ -95,6 +96,8 @@ def _build(so_path: str) -> None:
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -123,4 +126,5 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw cudaStream_t of the current stream on t's device."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

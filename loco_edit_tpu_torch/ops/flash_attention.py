@@ -46,11 +46,30 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(w, v)
 
 
+def route(dtype: torch.dtype) -> str:
+    """The kernel route a dtype takes: bf16 runs on the tensor cores, f32 on
+    FMA loops (TF32 would not hold the f32 checks)."""
+    return {torch.bfloat16: "bf16-tensor-core", torch.float32: "f32-fma"}[dtype]
+
+
+def _kernel_layout(t: torch.Tensor) -> bool:
+    """Whether the kernel takes t's layout as it is: head dim of stride 1 and,
+    on the bf16 route's 16-byte copies, a 16-byte aligned pointer and
+    (b, h, n) strides that are multiples of 8 elements."""
+    st = t.stride()
+    return st[-1] == 1 and (t.dtype is not torch.bfloat16 or (
+        t.data_ptr() % 16 == 0 and st[0] % 8 == 0 and st[1] % 8 == 0
+        and st[2] % 8 == 0))
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """Launch csrc/flash_attention.cu. q, k, v: (B, H, N, D) CUDA tensors of
-    one dtype (f32 or bf16), head dim of stride 1, D in HEAD_DIMS, any N.
-    Returns a contiguous (B, H, N, D) tensor."""
+    one dtype (f32 or bf16), head dim of stride 1 (bf16: 16-byte aligned,
+    strides multiples of 8), D in HEAD_DIMS, any N. Returns a contiguous
+    (B, H, N, D) tensor."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention_cuda: dtype {q.dtype} not supported")
     for t in (q, k, v):
         if not t.is_cuda:
             raise ValueError("flash_attention_cuda takes CUDA tensors")
@@ -59,10 +78,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                              f"(B, H, N, D) shape, got {tuple(t.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError("flash_attention_cuda: q, k, v dtype/device differ")
-        if t.stride(-1) != 1:
-            raise ValueError("flash_attention_cuda: head dim must have stride 1")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention_cuda: dtype {q.dtype} not supported")
+        if not _kernel_layout(t):
+            raise ValueError("flash_attention_cuda: head dim must have stride 1 "
+                             "(bf16: 16-byte aligned, strides multiples of 8)")
     b, h, n, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {d} not in {HEAD_DIMS}")
@@ -90,7 +108,8 @@ class AttentionFn(torch.autograd.Function):
     def forward(q, k, v):
         if q.is_cuda:
             return flash_attention_cuda(
-                *(t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v)))
+                *(t if _kernel_layout(t) else t.clone(memory_format=torch.contiguous_format)
+                  for t in (q, k, v)))
         if q.device.type != "cpu":
             raise RuntimeError(f"AttentionFn: no kernel for device {q.device}")
         return attention_plain(q, k, v)

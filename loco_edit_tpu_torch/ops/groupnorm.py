@@ -17,11 +17,65 @@ dimension into the batch and launches once.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from loco_edit_tpu_torch.ops import _cuda
 
-_CHUNK = 256      # pixels per block in the kernel's statistics pass
+_THREADS = 256        # target threads per block of both launches
+_UNROLL = 4           # 16-byte loads in flight per thread (kUnroll in the .cu)
+_TARGET_BLOCKS = 2112     # 16 blocks per SM of a 132-SM H100: short chunks
+_MIN_BLOCK_BYTES = 32768  # balance the tail; small tensors keep >= 32 KB a block
+
+
+class GNGeometry(NamedTuple):
+    vec: int          # channels per thread (one 16-byte vector)
+    threads_x: int    # C / vec
+    rows: int         # pixel rows per block step
+    chunk: int        # pixels per block
+    chunks: int       # blocks per batch element
+    work: int         # f32 scratch: per-chunk group partials, mean and rstd
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_geometry(b: int, c: int, hw: int, itemsize: int,
+                    num_groups: int = 32) -> GNGeometry:
+    """Launch geometry and scratch size of csrc/groupnorm.cu for a (B, C, H*W)
+    input of `itemsize`-byte elements: blocks of (C / vec) x rows threads, each
+    batch element cut into pixel chunks of whole unrolled steps, so that
+    B * chunks comes near _TARGET_BLOCKS where every block still reads
+    _MIN_BLOCK_BYTES."""
+    vec = 16 // itemsize
+    tx = c // vec
+    rows = max(1, _THREADS // tx)
+    step = rows * _UNROLL
+    steps = -(-hw // step)
+    per_b = min(steps, -(-_TARGET_BLOCKS // b),
+                max(1, hw * c * itemsize // _MIN_BLOCK_BYTES))
+    chunk = -(-steps // per_b) * step
+    chunks = -(-hw // chunk)
+    return GNGeometry(vec, tx, rows, chunk, chunks,
+                      2 * b * chunks * num_groups + 2 * b * num_groups)
+
+
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+
+
+def _scratch_for(x: torch.Tensor, stream: int, b: int, work: int):
+    """Pointers (tickets, work) for one launch on x's device and this stream.
+    One buffer is kept per (device, stream) and made anew, larger, when a
+    call needs more. Its first words are the kernel's int32 tickets, zeroed
+    when the buffer is made and left at zero by every launch; launches on
+    one stream run in order, so they share the rest as scratch."""
+    key = (x.device.index, stream)
+    buf, tickets = _scratch.get(key, (None, 0))
+    if buf is None or tickets < b or buf.numel() < tickets + work:
+        tickets = max(b, tickets, 64)
+        buf = torch.zeros(tickets + 2 * work, dtype=torch.float32, device=x.device)
+        _scratch[key] = buf, tickets
+    return buf.data_ptr(), buf.data_ptr() + 4 * tickets
 
 
 def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -75,23 +129,27 @@ def group_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if c % 32 or c % num_groups:
         raise ValueError(f"group_norm_cuda: C={c} must divide by 32 and by "
                          f"{num_groups} groups")
-    if not _to_nhwc(x).is_contiguous():
+    if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("group_norm_cuda: x must be channels_last contiguous")
     for name, p in (("scale", scale), ("bias", bias)):
         if (p.dtype != torch.float32 or p.device != x.device
                 or p.shape != (c,) or not p.is_contiguous()):
             raise ValueError(f"group_norm_cuda: {name} must be a contiguous "
                              f"({c},) f32 tensor on {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("group_norm_cuda: x must be 16-byte aligned "
+                         "(the kernel moves 16-byte vectors)")
+    geo = launch_geometry(b, c, h * w, x.element_size(), num_groups)
+    if geo.threads_x > 512:
+        raise ValueError(f"group_norm_cuda: C={c} too wide for one block row")
     lib = _cuda.load_library()
-    hw = h * w
-    chunks = -(-hw // _CHUNK)
+    stream = _cuda.stream_of(x)
+    tickets, work = _scratch_for(x, stream, b, geo.work)
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    work = torch.empty(2 * b * chunks * c + 2 * b * num_groups,
-                       dtype=torch.float32, device=x.device)
     rc = lib.loco_group_norm(
-        x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        work.data_ptr(), b, hw, c, num_groups, float(eps), _CHUNK,
-        int(x.dtype == torch.bfloat16), _cuda.stream_of(x))
+        x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), work,
+        tickets, b, h * w, c, num_groups, float(eps), geo.rows, geo.chunk,
+        int(x.dtype == torch.bfloat16), stream)
     _cuda.check(rc, "loco_group_norm")
     group_norm_cuda.launches += 1
     return y
@@ -108,8 +166,10 @@ class GroupNormFn(torch.autograd.Function):
     @staticmethod
     def forward(x, scale, bias, num_groups, eps):
         if x.is_cuda:
-            return group_norm_cuda(x.contiguous(memory_format=torch.channels_last),
-                                   scale.float().contiguous(),
+            x = x.contiguous(memory_format=torch.channels_last)
+            if x.data_ptr() % 16:
+                x = x.clone(memory_format=torch.channels_last)
+            return group_norm_cuda(x, scale.float().contiguous(),
                                    bias.float().contiguous(), num_groups, eps)
         if x.device.type != "cpu":
             raise RuntimeError(f"GroupNormFn: no kernel for device {x.device}")

@@ -12,6 +12,7 @@ from loco_edit_tpu_torch.ops.flash_attention import (AttentionFn, attention_plai
                                                      flash_attention_cuda)
 from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_cuda,
                                                group_norm_plain)
+from _torch_p2_shapes import P2_GN_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +49,49 @@ def test_groupnorm_kernel_matches_plain(shape, dtype):
     assert (got.float() - ref.float()).abs().max().item() <= ATOL[dtype]
 
 
+def _gn_inputs(g, shape, dtype):
+    b, c, h, w = shape
+    x = (torch.randn(b, h, w, c, device="cuda", generator=g) * 2 + 0.3).to(dtype)
+    return (x.permute(0, 3, 1, 2), torch.randn(c, device="cuda", generator=g),
+            torch.randn(c, device="cuda", generator=g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chw", sorted(P2_GN_SHAPES))
+def test_groupnorm_kernel_at_every_p2_shape(chw, dtype):
+    """Batch 2 at each (C, H, W) a P2 forward gives the kernel."""
+    x, s, bias = _gn_inputs(_card(), (2, *chw), dtype)
+    got = group_norm_cuda(x, s, bias)
+    torch.cuda.synchronize()
+    assert (got.float() - group_norm_plain(x, s, bias).float()).abs().max().item() \
+        <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_kernel_same_bits_every_run(dtype):
+    """Two launches on one input give identical bits, also with launches of
+    other batch sizes between them (the tickets are back at 0 after each)."""
+    g = _card()
+    x, s, bias = _gn_inputs(g, (45, 128, 64, 64), dtype)
+    other = _gn_inputs(g, (3, 512, 16, 16), dtype)
+    first = group_norm_cuda(x, s, bias)
+    group_norm_cuda(*other)
+    second = group_norm_cuda(x, s, bias)
+    assert torch.equal(first, second)
+    assert torch.equal(group_norm_cuda(*other), group_norm_cuda(*other))
+
+
+def test_groupnorm_rejects_misaligned_input():
+    _card()
+    flat = torch.zeros(1 + 4 * 4 * 32, device="cuda", dtype=torch.bfloat16)
+    x = flat[1:].view(1, 4, 4, 32).permute(0, 3, 1, 2)
+    one, zero = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        group_norm_cuda(x, one, zero)
+    got = GroupNormFn.apply(x, one, zero, 32, 1e-5)   # the Function copies it
+    assert torch.equal(got, group_norm_plain(x.cpu(), one.cpu(), zero.cpu()).cuda())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 8, 256, 64), (1, 8, 64, 64), (45, 8, 256, 64),
                                    (2, 3, 100, 16), (1, 2, 77, 128), (1, 2, 65, 32)])
@@ -60,12 +104,46 @@ def test_attention_kernel_matches_plain(shape, dtype):
     assert (got.float() - ref.float()).abs().max().item() <= ATOL[dtype] / 2
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 63, 65, 129, 257])
+def test_attention_bf16_ragged_tiles(n, d):
+    """The tensor-core route at N that leave ragged query and key tiles."""
+    g = _card()
+    q, k, v = (torch.randn(2, 3, n, d, device="cuda", generator=g).bfloat16()
+               for _ in range(3))
+    got = flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention_plain(q, k, v)
+    assert (got.float() - ref.float()).abs().max().item() <= ATOL[torch.bfloat16] / 2
+
+
 def test_attention_kernel_takes_strided_heads():
     g = _card()
     qkv = torch.randn(2, 256, 3 * 512, device="cuda", generator=g)
     q, k, v = (t.reshape(2, 256, 8, 64).transpose(1, 2) for t in qkv.split(512, -1))
     got = flash_attention_cuda(q, k, v)
     assert (got - attention_plain(q, k, v)).abs().max().item() <= 1e-5
+
+
+def test_attention_bf16_takes_strided_heads():
+    """The head-split bf16 views the model passes, taken without a copy."""
+    g = _card()
+    qkv = torch.randn(2, 256, 3 * 512, device="cuda", generator=g).bfloat16()
+    q, k, v = (t.reshape(2, 256, 8, 64).transpose(1, 2) for t in qkv.split(512, -1))
+    got = flash_attention_cuda(q, k, v)
+    err = (got.float() - attention_plain(q, k, v).float()).abs().max().item()
+    assert err <= ATOL[torch.bfloat16] / 2
+
+
+def test_attention_bf16_rejects_misaligned_views():
+    g = _card()
+    flat = torch.randn(1 + 2 * 64 * 32, device="cuda", generator=g).bfloat16()
+    q = flat[1:].view(1, 2, 64, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, q, q)
+    got = AttentionFn.apply(q, q, q)                  # the Function copies it
+    ref = attention_plain(q, q, q)
+    assert (got.float() - ref.float()).abs().max().item() <= ATOL[torch.bfloat16] / 2
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

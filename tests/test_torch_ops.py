@@ -14,9 +14,11 @@ from jax.experimental import pallas as pl
 
 from loco_edit_tpu.ops.attention import _lean_attention, _xla_attention
 from loco_edit_tpu.ops.norms import group_norm_f32 as jax_gn
-from loco_edit_tpu_torch.ops.flash_attention import AttentionFn, attention_plain
-from loco_edit_tpu_torch.ops.groupnorm import GroupNormFn, group_norm_plain
+from loco_edit_tpu_torch.ops.flash_attention import AttentionFn, _scale, attention_plain
+from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_plain,
+                                               launch_geometry)
 from loco_edit_tpu_torch.ops.norms import group_norm_f32
+from _torch_p2_shapes import P2_ATTN_SHAPES, P2_GN_SHAPES, p2_call_shapes
 from _torch_port_utils import nchw, nhwc
 
 torch.set_num_threads(2)
@@ -217,3 +219,103 @@ def test_vmap_rules_fold_into_batch():
     for i in range(3):
         np.testing.assert_allclose(got[i].numpy(),
                                    attention_plain(q[i], k[i], v[0]).numpy(), atol=1e-6)
+
+
+# -- models of the CUDA kernels' arithmetic and launch geometry -----------------
+
+def test_p2_call_shapes_match_the_model():
+    """The P2 call shapes the card's tests and chip_smoke.py rely on are the
+    ones a FFHQ_P2 forward makes (65 GroupNorm and 4 attention calls)."""
+    gn, attn = p2_call_shapes()
+    assert dict(gn) == P2_GN_SHAPES and sum(gn.values()) == 65
+    assert dict(attn) == P2_ATTN_SHAPES and sum(attn.values()) == 4
+
+
+def _tensor_core_attention_model(q, k, v, block=64):
+    """Plain-torch model of csrc/flash_attention.cu's bf16 route: q * d^-1/4
+    and k * d^-1/4 rounded to bf16, f32 logits and online softmax over
+    64-key tiles, unnormalized P rounded to bf16 before P V with f32
+    accumulation, one f32 division by the row sum, output rounded to bf16."""
+    scale = _scale(q.shape[-1])
+    qs, ks = (q * scale).float(), (k * scale).float()
+    m = torch.full(q.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32)
+    for j0 in range(0, q.shape[-2], block):
+        s = qs @ ks[..., j0:j0 + block, :].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ v[..., j0:j0 + block, :].float()
+        m = m_new
+    return (acc / l).bfloat16()
+
+
+@pytest.mark.parametrize("sigma", [1.0, 2.0])
+@pytest.mark.parametrize("shape", [(2, 8, 256, 64), (2, 8, 64, 64), (1, 3, 129, 16),
+                                   (1, 2, 65, 128), (1, 2, 1, 32)])
+def test_tensor_core_attention_rounding_within_bf16_tolerance(shape, sigma):
+    """The bf16 kernel rounds at other places than attention_plain (P before
+    normalizing, not the normalized weights); at P2 shapes and magnitudes the
+    model of its rounding stays within the 3e-2 bf16 tolerance that
+    chip_smoke.py and the card's tests hold the kernel to."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(20, shape))
+    q, k = (q * sigma).bfloat16(), (k * sigma).bfloat16()
+    got = _tensor_core_attention_model(q, k, v)
+    ref = attention_plain(q, k, v)
+    assert (got.float() - ref.float()).abs().max().item() <= 3e-2
+
+
+@pytest.mark.parametrize("chw", sorted(P2_GN_SHAPES))
+def test_groupnorm_launch_geometry_at_p2_shapes(chw):
+    """csrc/groupnorm.cu's geometry at each P2 (C, H, W), batch 1 and 45, bf16
+    and f32: 16-byte vectors across C, about 256 threads a block, chunks of
+    whole unrolled steps that cover every pixel once, more than half of 2112
+    blocks (16 per SM of 132) where the tensor has that many steps of 32 KB
+    or more, shared memory under 48 KB, and the scratch the kernel indexes."""
+    c, h, w = chw
+    hw = h * w
+    for b in (1, 45):
+        for itemsize in (2, 4):
+            geo = launch_geometry(b, c, hw, itemsize)
+            assert geo.vec * itemsize == 16 and geo.threads_x * geo.vec == c
+            assert geo.threads_x * geo.rows <= 256
+            step = geo.rows * 4
+            assert geo.chunk % step == 0
+            assert (geo.chunks - 1) * geo.chunk < hw <= geo.chunks * geo.chunk
+            want = min(2112, b * -(-hw // step), b * max(1, hw * c * itemsize // 32768))
+            assert 2 * b * geo.chunks > want
+            assert 2 * max(geo.rows * c, 32 * 8) * 4 <= 48 * 1024
+            assert geo.work == 2 * b * geo.chunks * 32 + 2 * b * 32
+
+
+def _two_launch_model(x, scale, bias, geo, groups=32, eps=1e-5):
+    """numpy f32 model of the kernel's reduction: per-chunk group partials,
+    then the last block's sums over chunk subsets k, k + 8, ... in order."""
+    b, hw, c = x.shape
+    cg = c // groups
+    part = np.zeros((2, b, geo.chunks, groups), np.float32)
+    for i in range(geo.chunks):
+        blk = x[:, i * geo.chunk:(i + 1) * geo.chunk]
+        for j, v in enumerate((blk, blk * blk)):
+            part[j, :, i] = v.sum(1).reshape(b, groups, cg).sum(-1)
+    s, ss = (np.sum([p[:, k::8].sum(1) for k in range(8)], axis=0) for p in part)
+    n = np.float32(hw * cg)
+    mean = s / n
+    rstd = 1 / np.sqrt(np.maximum(ss / n - mean * mean, 0) + np.float32(eps))
+    rep = lambda t: np.repeat(t, cg, axis=1)[:, None, :]          # noqa: E731
+    return (x - rep(mean)) * rep(rstd) * scale + bias
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 64), (1, 9, 9, 384), (3, 16, 16, 96),
+                                   (45, 8, 8, 1024)])
+def test_groupnorm_two_launch_model_matches_plain(shape):
+    """The kernel's chunked, fixed-order reduction over its launch geometry
+    gives group_norm_plain's result (f32, atol 1e-5)."""
+    x, s, b = _gn_inputs(21, shape)
+    bsz, h, w, c = shape
+    geo = launch_geometry(bsz, c, h * w, 4)
+    got = _two_launch_model(x.reshape(bsz, h * w, c), s, b, geo)
+    ref = nhwc(group_norm_plain(nchw(x), torch.from_numpy(s), torch.from_numpy(b)))
+    np.testing.assert_allclose(got.reshape(shape), ref, atol=1e-5)
