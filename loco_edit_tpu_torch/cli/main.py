@@ -1,0 +1,134 @@
+"""CLI entry point for the unconditional engines (port of the uncond part of
+loco_edit_tpu/cli/main.py): parse flags, preset, build the engine, dispatch
+experiments. Runs on the card unless `--device cpu`.
+
+Run e.g.:
+  python -m loco_edit_tpu_torch.cli.main --model_name CelebA_HQ_HF \
+      --dataset_name CelebA_HQ_mask --dataset_root /data/CelebAMask-HQ \
+      --checkpoint_path ddpm-ema-celebahq-256.bin --choose_sem hair \
+      --run_edit_null_space_projection true --null_space_projection true \
+      --edit_t 0.6 --performance_boosting_t 0.2 --use_x_space_guidance true \
+      --x_space_guidance_num_step 16 --h_t 0.6
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+
+def build_uncond_pipeline(args):
+    from loco_edit_tpu_torch.core.rng import seed_everything
+    from loco_edit_tpu_torch.diffusion import LinspaceDDIM
+    from loco_edit_tpu_torch.models.registry import load_denoiser
+    from loco_edit_tpu_torch.pipelines import UncondEditConfig, UncondEditPipeline
+
+    rng = seed_everything(args.seed)
+    denoiser = load_denoiser(args)
+    cfg = UncondEditConfig(
+        for_steps=args.for_steps,
+        inv_steps=args.inv_steps,
+        inv_refine_steps=args.inv_refine_steps,
+        edit_t=args.edit_t,
+        performance_boosting_t=args.performance_boosting_t,
+        x_space_guidance_scale=args.x_space_guidance_scale,
+        x_space_guidance_edit_step=args.x_space_guidance_edit_step,
+        x_space_guidance_num_step=args.x_space_guidance_num_step,
+        vis_num=args.vis_num,
+        vis_num_pc=args.pca_rank,
+        pca_rank=args.pca_rank,
+        pca_rank_null=args.pca_rank_null,
+        null_space_projection=args.null_space_projection,
+        encoder_decoder_by_et=args.encoder_decoder_by_et,
+        probe_chunk=args.probe_chunk or None,
+        memory_bound=args.memory_bound,
+        pixel_output=args.pixel_output,
+        result_folder=args.result_folder,
+    )
+    scheduler = LinspaceDDIM(noise_schedule=args.noise_schedule)
+    pipe = UncondEditPipeline(denoiser, cfg, rng, scheduler, device=args.device)
+    return pipe, denoiser, rng
+
+
+def get_sample_and_mask(args, pipe, denoiser, rng):
+    """Resolve the input image (dataset sample or seeded noise) and the edit
+    mask (CelebAMask-HQ ground truth or none). Returns (x0, xT, mask):
+    numpy x0 or a latent xT on the pipeline's device, and a boolean NHWC
+    mask or None."""
+    from loco_edit_tpu_torch.data import get_dataset
+
+    if args.use_mask and args.dataset_name != "CelebA_HQ_mask":
+        raise NotImplementedError(
+            f"--use_mask true on --dataset_name {args.dataset_name!r} needs SAM "
+            "masks, which are not ported yet (ROADMAP.md Queue A item 13); use "
+            "CelebA_HQ_mask or --use_mask false")
+    h, w, c = denoiser.sample_shape
+    if args.dataset_name == "Random":
+        xT = rng.fork("xT").normal((1, h, w, c), device=pipe.device)
+        return None, xT, None
+    dataset = get_dataset(args.dataset_name, args.dataset_root, args.image_size,
+                          save_path=os.path.join(args.result_folder, "dataset"))
+    x0 = np.asarray(dataset[args.sample_idx])
+    mask = dataset.getmask(args.sample_idx, args.choose_sem) if args.use_mask else None
+    return x0, None, mask
+
+
+def main(argv=None):
+    """Parse, check, preset and dispatch. Returns main_dispatch's results."""
+    from loco_edit_tpu_torch.cli.args import check_supported, parse_args, preset
+    from loco_edit_tpu_torch.core.device import resolve_device
+
+    args = parse_args(argv)
+    check_supported(args)
+    resolve_device(args.device)      # no card and no --device cpu: raise now
+    return main_dispatch(preset(args))
+
+
+def main_dispatch(args) -> dict:
+    """Run the experiments the flags select. Returns their outputs by name:
+    "forward" and "inversion" (numpy batches), "edit" (the result dict of
+    run_edit_null_space_projection), "group" (the group-edit frames), and
+    "timings" (seconds per pipeline phase of "edit" and "group")."""
+    from loco_edit_tpu_torch.utils.io import save_image_grid
+
+    pipe, denoiser, rng = build_uncond_pipeline(args)
+    results = {"timings": {}}
+
+    if args.run_ddim_forward:
+        h, w, c = denoiser.sample_shape
+        xT = rng.fork("fwd").normal((5, h, w, c), device=pipe.device)
+        x0 = pipe.generate(xT, 0, None).cpu().numpy()
+        save_image_grid(x0, os.path.join(args.result_folder, "DDIMforward.png"))
+        results["forward"] = x0
+
+    if args.run_ddim_inversion:
+        x0, _, _ = get_sample_and_mask(args, pipe, denoiser, rng)
+        if x0 is None:
+            raise SystemExit("--run_ddim_inversion needs a real image; "
+                             "--dataset_name Random has none")
+        xT = pipe.invert(x0).cpu().numpy()
+        save_image_grid(xT, os.path.join(args.result_folder, "DDIMinversion.png"))
+        results["inversion"] = xT
+
+    if args.run_edit_null_space_projection:
+        x0, xT, mask = get_sample_and_mask(args, pipe, denoiser, rng)
+        results["edit"] = pipe.run_edit_null_space_projection(
+            x0=x0, xT=xT, mask=mask,
+            sample_name=f"sample_idx{args.sample_idx}",
+            vT_path=args.vT_path or None, random_edit=args.random_edit)
+        results["timings"]["edit"] = dict(pipe.timings)
+
+    if args.group_edit_null_space_projection:
+        x0, xT, mask = get_sample_and_mask(args, pipe, denoiser, rng)
+        if xT is None:
+            xT = pipe.invert(x0)
+        results["group"] = pipe.group_edit(
+            xT, [args.vT_path, args.vT1_path],
+            sample_name=f"sample_idx{args.sample_idx}")
+        results["timings"]["group"] = dict(pipe.timings)
+    return results
+
+
+if __name__ == "__main__":
+    main()

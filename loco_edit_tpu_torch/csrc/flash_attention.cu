@@ -9,14 +9,16 @@
 // (B, 8, 64, 64), one (batch, head) reads 3 * N * D and writes N * D values
 // for 4 * N^2 * D flops: ~128 flops per byte at N = 256, below the ~295
 // flop/byte ridge of the bf16 tensor cores, and far below it at N = 64.
-// mma.sync (not wgmma) is enough to stay under the byte bound.
+// The DDPM U-Net's single-head attention, (B, 1, 256, 512) and
+// (B, 1, 64, 512), has the same flops per byte. mma.sync (not wgmma) is
+// enough to stay under the byte bound.
 //
 // bf16 route (the model's dtype), FlashAttention-2 style:
-//   - One block of 4 warps per (batch * head, 64-row query tile); each warp
-//     owns 16 query rows. S = Q K^T and O += P V run as
-//     mma.sync.m16n8k16 bf16 products with f32 accumulators; Q, K and V
-//     fragments come from shared memory by ldmatrix (ldmatrix.trans for V).
-//   - Q and 64-key K/V tiles are staged in bf16 by 16-byte cp.async, K/V
+//   - One block of 4 warps per (batch * head, 64-row query tile, slice of
+//     output columns); each warp owns 16 query rows. S = Q K^T and O += P V
+//     run as mma.sync.m16n8k16 bf16 products with f32 accumulators; Q, K and
+//     V fragments come from shared memory by ldmatrix (ldmatrix.trans for V).
+//   - Q and K/V tiles are staged in bf16 by 16-byte cp.async, K/V
 //     double-buffered, rows padded by 16 bytes so ldmatrix has no bank
 //     conflicts. Each thread rounds q * d^-1/4 and k * d^-1/4 to bf16 in
 //     place on the chunks it copied, as the plain version rounds qs and ks.
@@ -27,12 +29,24 @@
 //   - Any N: the ragged last key tile is zero-filled by cp.async and masked
 //     to -inf; query rows >= N are not stored. Strided (head-split) views
 //     are taken as they are; the wrapper checks 16-byte alignment.
+//   - Wide heads (D = 256, 512; the DDPM U-Net's D = C = 512): a third grid
+//     axis cuts the output columns into D / 128 slices. Each block still
+//     forms the full logits S over all D (Q stays whole in shared memory,
+//     K tiles are D wide) and runs the same online softmax, but accumulates
+//     only O[:, slice] += P V[:, slice], so its accumulators and its P V code
+//     are those of the D = 128 route. At D <= 128 there is one slice and Q
+//     fragments stay in registers; at D > 128 they are read from shared
+//     memory per k-step (32 k-steps would hold 128 registers). D = 512 takes
+//     32-key tiles so that Q (64 KB), double-buffered K (2 x 32 KB) and V
+//     slices (2 x 8 KB) fit the opt-in shared memory. The cost: S is formed
+//     D / 128 times and K read that many times (from L2 after the first).
 //
 // f32 route (explicitly for float32 inputs; the f32 checks take it, the bf16
 // model never does): scalar FMA loops from f32 shared memory. TF32 tensor
 // cores would not hold the 1e-3 agreement of the f32 network with the CPU.
-// One block per (batch * head, 32-row query tile), each warp keeps a running
-// (max, sum, acc) for 8 query rows.
+// One block per (batch * head, 32-row query tile, output slice), each warp
+// keeps a running (max, sum, acc) for 8 query rows; wide heads take the same
+// 128-column output slices and 32-key tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,14 +76,23 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;    // 4 warps x 16 query rows
 constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
+constexpr int kMaxSlice = 128;   // output columns per block
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Tiles of head dim D: Q (64 x D) and K (kBlockK x D) rows of D + 8
+// elements, V slices (kBlockK x kDV) rows of kDV + 8 (16 B padding).
 template <int D>
-struct Tile {
-  static constexpr int kStride = D + 8;              // elements, 16 B padding
-  static constexpr int kElems = 64 * kStride;        // one 64-row tile
-  static constexpr int kSmemBytes = 5 * kElems * 2;  // Q, K[2], V[2]
+struct Geo {
+  static constexpr int kDV = D < kMaxSlice ? D : kMaxSlice;
+  static constexpr int kSlices = D / kDV;
+  static constexpr int kBlockK = D > kMaxSlice ? 32 : 64;
+  static constexpr bool kQInRegs = D <= kMaxSlice;
+  static constexpr int kQStride = D + 8;
+  static constexpr int kVStride = kDV + 8;
+  static constexpr int kQElems = kBlockQ * kQStride;
+  static constexpr int kKElems = kBlockK * kQStride;
+  static constexpr int kVElems = kBlockK * kVStride;
+  static constexpr int kSmemBytes = (kQElems + 2 * kKElems + 2 * kVElems) * 2;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -121,32 +144,34 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&h);
 }
 
-// Start the copies of up to 64 rows of D values into a padded tile; rows at
-// or past `rows` are zero-filled.
-template <int D>
+// Start the copies of up to ROWS rows of COLS values into a tile of row
+// stride STRIDE; rows at or past `rows` are zero-filled.
+template <int ROWS, int COLS, int STRIDE>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long row_stride, int rows,
                                           int tid) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = COLS / 8;
+  static_assert(ROWS * kChunks % kThreads == 0, "tile not a whole number of copies");
 #pragma unroll
-  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
+  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
     const int i = tid + it * kThreads;
     const int r = i / kChunks, c = i % kChunks;
     const bool ok = r < rows;
-    cp_async16(dst + r * Tile<D>::kStride + c * 8,
-               ok ? src + r * row_stride + c * 8 : src, ok ? 16 : 0);
+    cp_async16(dst + r * STRIDE + c * 8, ok ? src + r * row_stride + c * 8 : src,
+               ok ? 16 : 0);
   }
 }
 
-// Round x * scale to bf16 in place, on the chunks this thread copied (its
-// own cp.async results are visible to it after the wait).
-template <int D>
+// Round x * scale to bf16 in place, on the chunks this thread copied with
+// load_tile<ROWS, COLS, STRIDE> (its own cp.async results are visible to it
+// after the wait).
+template <int ROWS, int COLS, int STRIDE>
 __device__ __forceinline__ void scale_tile(bf16* t, float scale, int tid) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = COLS / 8;
 #pragma unroll
-  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
+  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
     const int i = tid + it * kThreads;
-    uint4* p = reinterpret_cast<uint4*>(t + (i / kChunks) * Tile<D>::kStride +
+    uint4* p = reinterpret_cast<uint4*>(t + (i / kChunks) * STRIDE +
                                         (i % kChunks) * 8);
     uint4 u = *p;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
@@ -159,26 +184,31 @@ __device__ __forceinline__ void scale_tile(bf16* t, float scale, int tid) {
   }
 }
 
-// grid (ceil(N / 64), B * H), block 128.
+// grid (ceil(N / 64), B * H, D / kDV), block 128.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
                           int heads, int n, Strides sq, Strides sk, Strides sv,
                           Strides so, float scale) {
-  using T = Tile<D>;
-  constexpr int kDTiles = D / 8;     // 8-wide n-tiles of O
+  using G = Geo<D>;
+  constexpr int DV = G::kDV;
+  constexpr int kBlockK = G::kBlockK;
+  constexpr int QS = G::kQStride;
+  constexpr int VS = G::kVStride;
+  constexpr int kDTiles = DV / 8;    // 8-wide n-tiles of this block's O slice
   constexpr int kKSteps = D / 16;    // 16-deep k-steps of Q K^T
   constexpr int kKeyTiles = kBlockK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + T::kElems;         // [2][64][D + 8]
-  bf16* vs = ks + 2 * T::kElems;     // [2][64][D + 8]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][D + 8]
+  bf16* ks = qs + G::kQElems;                    // [2][kBlockK][D + 8]
+  bf16* vs = ks + 2 * G::kKElems;                // [2][kBlockK][DV + 8]
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh % heads;
   const int q0 = blockIdx.x * kBlockQ;
+  const int c0 = blockIdx.z * DV;    // first output column of this block
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -188,16 +218,16 @@ __global__ void __launch_bounds__(kThreads)
 
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  bf16* ob = o + b * so.b + h * so.h;
+  const bf16* vb = v + b * sv.b + h * sv.h + c0;
+  bf16* ob = o + b * so.b + h * so.h + c0;
   const int num_tiles = (n + kBlockK - 1) / kBlockK;
 
-  load_tile<D>(qs, qb + q0 * sq.n, sq.n, n - q0, tid);
-  load_tile<D>(ks, kb, sk.n, n, tid);
-  load_tile<D>(vs, vb, sv.n, n, tid);
+  load_tile<kBlockQ, D, QS>(qs, qb + q0 * sq.n, sq.n, n - q0, tid);
+  load_tile<kBlockK, D, QS>(ks, kb, sk.n, n, tid);
+  load_tile<kBlockK, DV, VS>(vs, vb, sv.n, n, tid);
   cp_async_commit();
 
-  unsigned qf[kKSteps][4];
+  unsigned qf[G::kQInRegs ? kKSteps : 1][4];
   float acc[kDTiles][4];
   float m[2] = {-INFINITY, -INFINITY};   // rows g and g + 8
   float l[2] = {0.f, 0.f};               // this thread's share of the row sums
@@ -205,47 +235,57 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kDTiles; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const bf16* qrow = qs + (warp * 16 + lane % 16) * QS + (lane / 16) * 8;
 
   for (int t = 0; t < num_tiles; ++t) {
     const int cur = t & 1;
     const int j0 = t * kBlockK;
     if (t + 1 < num_tiles) {
       const int j1 = j0 + kBlockK;
-      load_tile<D>(ks + (cur ^ 1) * T::kElems, kb + j1 * sk.n, sk.n, n - j1, tid);
-      load_tile<D>(vs + (cur ^ 1) * T::kElems, vb + j1 * sv.n, sv.n, n - j1, tid);
+      load_tile<kBlockK, D, QS>(ks + (cur ^ 1) * G::kKElems, kb + j1 * sk.n,
+                                sk.n, n - j1, tid);
+      load_tile<kBlockK, DV, VS>(vs + (cur ^ 1) * G::kVElems, vb + j1 * sv.n,
+                                 sv.n, n - j1, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    if (t == 0) scale_tile<D>(qs, scale, tid);
-    scale_tile<D>(ks + cur * T::kElems, scale, tid);
+    if (t == 0) scale_tile<kBlockQ, D, QS>(qs, scale, tid);
+    scale_tile<kBlockK, D, QS>(ks + cur * G::kKElems, scale, tid);
     __syncthreads();
 
-    if (t == 0) {
+    if constexpr (G::kQInRegs) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldsm_x4(qf[kk], qs + (warp * 16 + lane % 16) * T::kStride + kk * 16 +
-                            (lane / 16) * 8);
+        for (int kk = 0; kk < kKSteps; ++kk) ldsm_x4(qf[kk], qrow + kk * 16);
+      }
     }
-    const bf16* kt = ks + cur * T::kElems;
-    const bf16* vt = vs + cur * T::kElems;
+    const bf16* kt = ks + cur * G::kKElems;
+    const bf16* vt = vs + cur * G::kVElems;
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
+    // S = Q K^T for this warp's 16 rows and the tile's keys, over all of D.
     float s[kKeyTiles][4];
 #pragma unroll
     for (int i = 0; i < kKeyTiles; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < kKeyTiles / 2; ++jj) {
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      unsigned a[4];
+      if constexpr (G::kQInRegs) {
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldsm_x4(a, qrow + kk * 16);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kKeyTiles / 2; ++jj) {
         unsigned bfr[4];
-        ldsm_x4(bfr, kt + (jj * 16 + (mat / 2) * 8 + r8) * T::kStride +
-                         kk * 16 + (mat % 2) * 8);
-        mma_bf16(s[2 * jj], qf[kk], bfr[0], bfr[1]);
-        mma_bf16(s[2 * jj + 1], qf[kk], bfr[2], bfr[3]);
+        ldsm_x4(bfr, kt + (jj * 16 + (mat / 2) * 8 + r8) * QS + kk * 16 +
+                         (mat % 2) * 8);
+        mma_bf16(s[2 * jj], a, bfr[0], bfr[1]);
+        mma_bf16(s[2 * jj + 1], a, bfr[2], bfr[3]);
       }
     }
 
@@ -286,7 +326,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e / 2];
 
-    // O += P V, P rounded to bf16 as the A operand.
+    // O[:, slice] += P V[:, slice], P rounded to bf16 as the A operand.
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
       const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
@@ -294,10 +334,10 @@ __global__ void __launch_bounds__(kThreads)
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int d0 = 0; d0 < D; d0 += 16) {
+      for (int d0 = 0; d0 < DV; d0 += 16) {
         unsigned bfr[4];
-        ldsm_x4_trans(bfr, vt + (kk * 16 + (mat % 2) * 8 + r8) * T::kStride +
-                               d0 + (mat / 2) * 8);
+        ldsm_x4_trans(bfr, vt + (kk * 16 + (mat % 2) * 8 + r8) * VS + d0 +
+                               (mat / 2) * 8);
         mma_bf16(acc[d0 / 8], pa, bfr[0], bfr[1]);
         mma_bf16(acc[d0 / 8 + 1], pa, bfr[2], bfr[3]);
       }
@@ -306,7 +346,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // Row sums across the quad, divide in f32, stage the warp's 16 rows in its
-  // own rows of the Q tile and store them with 16-byte writes.
+  // own rows of the Q tile (no other warp reads them) and store them with
+  // 16-byte writes.
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -314,24 +355,23 @@ __global__ void __launch_bounds__(kThreads)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / l[r];
   }
-  bf16* stage = qs + warp * 16 * T::kStride;
+  bf16* stage = qs + warp * 16 * QS;
 #pragma unroll
   for (int i = 0; i < kDTiles; ++i) {
-    *reinterpret_cast<__nv_bfloat162*>(stage + g * T::kStride + i * 8 + 2 * t4) =
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * QS + i * 8 + 2 * t4) =
         __floats2bfloat162_rn(acc[i][0] * inv[0], acc[i][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * T::kStride + i * 8 +
-                                       2 * t4) =
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * QS + i * 8 + 2 * t4) =
         __floats2bfloat162_rn(acc[i][2] * inv[1], acc[i][3] * inv[1]);
   }
   __syncwarp();
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = DV / 8;
 #pragma unroll
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = i % kChunks;
     const int row = q0 + warp * 16 + r;
     if (row < n)
       *reinterpret_cast<uint4*>(ob + row * so.n + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * T::kStride + c * 8);
+          *reinterpret_cast<const uint4*>(stage + r * QS + c * 8);
   }
 }
 
@@ -339,7 +379,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int heads, int n, Strides sq, Strides sk, Strides sv, Strides so,
            float scale, cudaStream_t stream) {
-  constexpr int smem = Tile<D>::kSmemBytes;
+  constexpr int smem = Geo<D>::kSmemBytes;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -348,7 +388,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, b * heads);
+  const dim3 grid((n + kBlockQ - 1) / kBlockQ, b * heads, Geo<D>::kSlices);
   flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), heads, n, sq, sk, sv,
@@ -367,39 +407,47 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = 32;                 // query rows per block
 constexpr int kRowsPerWarp = kBlockQ / kWarps;
-constexpr int kBlockK = 64;                 // keys per shared-memory tile
-constexpr int kKeysPerLane = kBlockK / 32;
+constexpr int kMaxSlice = 128;              // output columns per block
 
+// Head dim D: output slices of kDV columns, keys per shared-memory tile.
 template <int D>
-constexpr int smem_floats() {
-  return kBlockQ * D + kBlockK * (D + 1) + kBlockK * D;
-}
+struct Geo {
+  static constexpr int kDV = D < kMaxSlice ? D : kMaxSlice;
+  static constexpr int kSlices = D / kDV;
+  static constexpr int kBlockK = D > kMaxSlice ? 32 : 64;
+  static constexpr int kSmemFloats = kBlockQ * D + kBlockK * (D + 1) + kBlockK * kDV;
+};
 
-// grid (ceil(N / 32), B * H), block 128.
+// grid (ceil(N / 32), B * H, D / kDV), block 128.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          int heads, int n, Strides sq, Strides sk, Strides sv,
                          Strides so, float scale) {
-  constexpr int kDimsPerLane = (D + 31) / 32;
+  using G = Geo<D>;
+  constexpr int DV = G::kDV;
+  constexpr int kBlockK = G::kBlockK;
+  constexpr int kKeysPerLane = kBlockK / 32;
+  constexpr int kDimsPerLane = (DV + 31) / 32;
   extern __shared__ float smem[];
   float* qs = smem;                        // [kBlockQ][D]
   float* ks = qs + kBlockQ * D;            // [kBlockK][D + 1]
-  float* vs = ks + kBlockK * (D + 1);      // [kBlockK][D]
+  float* vs = ks + kBlockK * (D + 1);      // [kBlockK][DV]
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh % heads;
   const int q0 = blockIdx.x * kBlockQ;
+  const int c0 = blockIdx.z * DV;          // first output column of this block
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  float* ob = o + b * so.b + h * so.h;
+  const float* vb = v + b * sv.b + h * sv.h + c0;
+  float* ob = o + b * so.b + h * so.h + c0;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -419,9 +467,11 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // previous tile fully consumed (and q tile written)
     for (int i = tid; i < kBlockK * D; i += kThreads) {
       const int j = i / D, d = i % D;
-      const bool valid = j0 + j < n;
-      ks[j * (D + 1) + d] = valid ? kb[(j0 + j) * sk.n + d] * scale : 0.f;
-      vs[j * D + d] = valid ? vb[(j0 + j) * sv.n + d] : 0.f;
+      ks[j * (D + 1) + d] = (j0 + j < n) ? kb[(j0 + j) * sk.n + d] * scale : 0.f;
+    }
+    for (int i = tid; i < kBlockK * DV; i += kThreads) {
+      const int j = i / DV, d = i % DV;
+      vs[i] = (j0 + j < n) ? vb[(j0 + j) * sv.n + d] : 0.f;
     }
     __syncthreads();
 
@@ -460,11 +510,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
         for (int jj = 0; jj < 32; ++jj) {
           const float p = __shfl_sync(0xffffffffu, s[i], jj);
-          const float* vrow = vs + (32 * i + jj) * D;
+          const float* vrow = vs + (32 * i + jj) * DV;
 #pragma unroll
           for (int e = 0; e < kDimsPerLane; ++e) {
             const int d = lane + 32 * e;
-            if (d < D) acc[r][e] += p * vrow[d];
+            if (d < DV) acc[r][e] += p * vrow[d];
           }
         }
       }
@@ -479,7 +529,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < kDimsPerLane; ++e) {
       const int d = lane + 32 * e;
-      if (d < D) ob[(q0 + row) * so.n + d] = acc[r][e] * inv_l;
+      if (d < DV) ob[(q0 + row) * so.n + d] = acc[r][e] * inv_l;
     }
   }
 }
@@ -488,7 +538,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int heads, int n, Strides sq, Strides sk, Strides sv, Strides so,
            float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
+  const size_t smem = Geo<D>::kSmemFloats * sizeof(float);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -497,7 +547,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, b * heads);
+  const dim3 grid((n + kBlockQ - 1) / kBlockQ, b * heads, Geo<D>::kSlices);
   flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), heads, n, sq, sk,
@@ -522,6 +572,8 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
     LOCO_ATTN_CASE(32)
     LOCO_ATTN_CASE(64)
     LOCO_ATTN_CASE(128)
+    LOCO_ATTN_CASE(256)
+    LOCO_ATTN_CASE(512)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LOCO_ATTN_CASE
@@ -532,7 +584,7 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
 // q, k, v, o: (B, H, N, D) with element strides (b, h, n) each and a head
 // dim of stride 1; f32 (is_bf16 = 0, FMA route) or bf16 (is_bf16 = 1,
 // tensor-core route: pointers 16-byte aligned, strides multiples of 8).
-// D in {16, 32, 64, 128}. Returns cudaGetLastError().
+// D in {16, 32, 64, 128, 256, 512}. Returns cudaGetLastError().
 extern "C" int loco_flash_attention(
     const void* q, const void* k, const void* v, void* o, int b, int heads,
     int n, int d, long long sqb, long long sqh, long long sqn, long long skb,

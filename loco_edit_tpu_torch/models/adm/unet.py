@@ -31,6 +31,7 @@ from loco_edit_tpu_torch.models.adm.config import (
     SampleSpec,
     adm_layout,
 )
+from loco_edit_tpu_torch.models.base import init_random_weights_
 from loco_edit_tpu_torch.ops import group_norm_f32, sdp_attention
 
 
@@ -200,28 +201,9 @@ class ADMUNet(nn.Module):
         self.out_norm = GroupNorm32(self.layout.out_ch_final)
         self.out_conv = _conv(self.layout.out_ch_final, cfg.out_channels, cfg)
 
-    @torch.no_grad()
     def init_random_(self, generator: torch.Generator) -> "ADMUNet":
-        """Seeded random weights: every conv / dense / embedding weight from a
-        truncated normal of variance 1/fan_in (Flax's lecun_normal), biases
-        zero, GroupNorm affine (1, 0). Unlike the JAX package's init, the
-        zero-initialized output layers (ResBlock out_conv, proj_out, the
-        final out_conv) get the same random weights, so eps is not
-        identically zero and every layer reaches the output and the
-        Jacobian."""
-        std_trunc = 0.87962566103423978   # std of a unit normal cut at +-2
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                std = math.sqrt(1.0 / fan_in) / std_trunc
-                w = torch.empty(m.weight.shape, dtype=torch.float32,
-                                device=m.weight.device)
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                m.weight.copy_(w)
-                m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
-                m.weight.normal_(generator=generator)
+        """Seeded random weights (models/base.py::init_random_weights_)."""
+        init_random_weights_(self, generator)
         return self
 
     def forward(self, x, t, y=None, *, return_sigma: bool = False):

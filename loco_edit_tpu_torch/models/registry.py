@@ -1,10 +1,13 @@
-"""Model registry: model_name -> bound Denoiser (port of the ADM part of
+"""Model registry: model_name -> bound Denoiser (port of the uncond part of
 loco_edit_tpu/models/registry.py).
 
-Checkpoints are local files. A `.npz` of Flax parameters (as the JAX
-package's `save_params_npz` writes them) carries over through
-`adm_params_from_flax`; with no checkpoint the model gets seeded random
-weights (`ADMUNet.init_random_`).
+P2/ImageNet/LSUN names resolve to ADM presets, the *_HF names to the
+SDEdit-style DDPM U-Net family, "TinyTest" to the 32px tiny ADM.
+Checkpoints are local files: a torch guided-diffusion state_dict
+(`.pt`/`.pth`/`.ckpt`/`.safetensors`, converted by models/adm/convert.py)
+or a `.npz` of Flax parameters as the JAX package's `save_params_npz`
+writes them (carried by `adm_params_from_flax`). With no checkpoint the
+model gets seeded random weights (`ADMUNet.init_random_`).
 """
 
 from __future__ import annotations
@@ -16,48 +19,38 @@ from loco_edit_tpu_torch.core.device import resolve_device
 from loco_edit_tpu_torch.models.adm import ADMUNet, adm_preset
 from loco_edit_tpu_torch.models.adm.presets import tiny_test_config
 from loco_edit_tpu_torch.models.base import Denoiser
+from loco_edit_tpu_torch.models.convert_util import check_state_dict, flax_to_state_dict
 
 ADM_NAMES = ("FFHQ_P2", "AFHQ_P2", "Flower_P2", "Cub_P2", "Metface_P2",
              "ImageNet256Uncond", "ImageNet256Cond", "ImageNet128Cond",
              "ImageNet64Cond", "LSUN_bedroom", "LSUN_cat", "LSUN_horse")
+DDPM_HF_NAMES = ("CelebA_HQ_HF", "LSUN_church_HF", "LSUN_bedroom_HF", "FFHQ_HF")
 
 
 def adm_params_from_flax(flat: dict[str, np.ndarray], cfg) -> dict[str, torch.Tensor]:
-    """Carry a flat Flax ADM parameter dict ("params/input_0/conv_0/kernel"
-    style keys, the leading "params/" optional) to an ADMUNet state_dict.
-
-    Dense kernels (in, out) become Linear weights (out, in); conv kernels
-    HWIO become OIHW; GroupNorm `scale` and Embed `embedding` become
-    `weight`. The Flax qkv kernel is already q|k|v-contiguous, so the qkv
-    Linear keeps that packing. Raises ValueError unless the result matches
-    the module tree of `cfg` key for key and shape for shape.
-    """
-    sd = {}
-    for key, arr in flat.items():
-        parts = key.split("/")
-        if parts[0] == "params":
-            parts = parts[1:]
-        *mods, leaf = parts
-        a = np.asarray(arr, np.float32)
-        if leaf == "kernel":
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-            leaf = "weight"
-        elif leaf in ("scale", "embedding"):
-            leaf = "weight"
-        elif leaf != "bias":
-            raise ValueError(f"unexpected Flax parameter {key!r}")
-        sd[".".join(mods + [leaf])] = torch.tensor(a)
+    """Carry a flat Flax ADM parameter dict to an ADMUNet state_dict
+    (models/convert_util.py::flax_to_state_dict). The Flax qkv kernel is
+    already q|k|v-contiguous, so the qkv Linear keeps that packing. Raises
+    ValueError unless the result matches the module tree of `cfg` key for
+    key and shape for shape."""
+    sd = flax_to_state_dict(flat)
     with torch.device("meta"):
-        expected = {k: tuple(v.shape) for k, v in ADMUNet(cfg).state_dict().items()}
-    got = {k: tuple(v.shape) for k, v in sd.items()}
-    if got != expected:
-        missing = sorted(set(expected) - set(got))
-        extra = sorted(set(got) - set(expected))
-        shapes = sorted(k for k in set(got) & set(expected) if got[k] != expected[k])
-        raise ValueError(f"Flax params do not match the ADM config: missing "
-                         f"{missing[:5]}, unexpected {extra[:5]}, shape "
-                         f"mismatch {shapes[:5]}")
+        check_state_dict(sd, ADMUNet(cfg), "Flax params")
     return sd
+
+
+def _adm_state_dict_from_file(path: str, cfg) -> dict[str, torch.Tensor]:
+    if path.endswith((".pt", ".pth", ".ckpt", ".safetensors")):
+        from loco_edit_tpu_torch.models.adm.convert import (
+            convert_adm_state_dict,
+            load_torch_checkpoint,
+        )
+
+        return convert_adm_state_dict(load_torch_checkpoint(path), cfg)
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return adm_params_from_flax({k: z[k] for k in z.files}, cfg)
+    raise ValueError(f"unsupported checkpoint format: {path}")
 
 
 def _bind(model: ADMUNet, device: torch.device) -> Denoiser:
@@ -73,20 +66,16 @@ def load_adm_denoiser(model_name: str, checkpoint_path: str = "",
                       dtype: torch.dtype = torch.float32,
                       device: str | torch.device = "cuda",
                       seed: int = 0) -> Denoiser:
-    """An ADM preset by name, with weights from a Flax `.npz` or, with no
-    checkpoint, seeded random weights. Runs on the card unless
-    device="cpu"."""
+    """An ADM preset by name, with weights from a checkpoint or, with none,
+    seeded random weights. Runs on the card unless device="cpu"."""
     dev = resolve_device(device)
     cfg = adm_preset(model_name, dtype=dtype)
     with torch.device(dev):
         model = ADMUNet(cfg)
     if checkpoint_path:
-        if not checkpoint_path.endswith(".npz"):
-            raise ValueError(f"unsupported checkpoint format: {checkpoint_path} "
-                             "(this port loads Flax .npz parameters)")
-        with np.load(checkpoint_path) as z:
-            flat = {k: z[k] for k in z.files}
-        model.load_state_dict(adm_params_from_flax(flat, cfg))
+        sd = _adm_state_dict_from_file(checkpoint_path, cfg)
+        check_state_dict(sd, model, f"checkpoint {checkpoint_path}")
+        model.load_state_dict(sd)
     else:
         model.init_random_(torch.Generator(dev).manual_seed(seed))
     return _bind(model, dev)
@@ -105,3 +94,20 @@ def load_tiny_denoiser(dtype: torch.dtype = torch.float32,
         for p in model.parameters():
             p.add_(0.02)
     return _bind(model, dev)
+
+
+def load_denoiser(args) -> Denoiser:
+    """CLI entry: resolve args.model_name to a Denoiser on args.device."""
+    dtype = torch.bfloat16 if args.dtype in ("bf16", "fp16") else torch.float32
+    if args.model_name == "TinyTest":
+        return load_tiny_denoiser(dtype, device=args.device)
+    if args.model_name in ADM_NAMES:
+        return load_adm_denoiser(args.model_name, args.checkpoint_path, dtype,
+                                 device=args.device)
+    if args.model_name in DDPM_HF_NAMES:
+        from loco_edit_tpu_torch.models.ddpm import load_ddpm_denoiser
+
+        return load_ddpm_denoiser(args.model_name, args.checkpoint_path, dtype,
+                                  device=args.device)
+    raise NotImplementedError(
+        f"model family for {args.model_name!r} not wired into the registry yet")

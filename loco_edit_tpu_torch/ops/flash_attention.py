@@ -22,7 +22,8 @@ import torch
 
 from loco_edit_tpu_torch.ops import _cuda
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256, 512)
+SLICE = 128          # output columns per block of the kernel (wider D is cut)
 
 
 def _scale(d: int) -> float:
@@ -46,10 +47,12 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(w, v)
 
 
-def route(dtype: torch.dtype) -> str:
-    """The kernel route a dtype takes: bf16 runs on the tensor cores, f32 on
-    FMA loops (TF32 would not hold the f32 checks)."""
-    return {torch.bfloat16: "bf16-tensor-core", torch.float32: "f32-fma"}[dtype]
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel route a dtype and head dim take: bf16 runs on the tensor
+    cores, f32 on FMA loops (TF32 would not hold the f32 checks); a head dim
+    above SLICE is cut into d / SLICE output-column slices, one block each."""
+    name = {torch.bfloat16: "bf16-tensor-core", torch.float32: "f32-fma"}[dtype]
+    return name if d <= SLICE else f"{name}-{d // SLICE}-slices"
 
 
 def _kernel_layout(t: torch.Tensor) -> bool:

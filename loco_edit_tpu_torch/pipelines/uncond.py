@@ -115,7 +115,8 @@ class UncondEditPipeline(EngineExec):
         self.boost_eta = self.scheduler.boost_eta_flags(
             cfg.for_steps, cfg.performance_boosting_t)
         self._boost_calls = 0   # per-call noise-stream counter (see generate)
-        # seconds per phase of the last run_edit_null_space_projection call
+        # seconds per phase of the last run_edit_null_space_projection,
+        # run_edit_batch or group_edit call
         self.timings: dict[str, float] = {}
         os.makedirs(cfg.result_folder, exist_ok=True)
 
@@ -325,3 +326,73 @@ class UncondEditPipeline(EngineExec):
             self.flush_io()   # every artifact is on disk when the call returns
         return {"xt": _host(xt), "vT": _host(vT), "strips": strips,
                 "edit_t_idx": self.edit_t_idx, "out_dir": out_dir}
+
+    def run_edit_batch(
+        self, x0s: np.ndarray | None = None, xTs: np.ndarray | None = None,
+        masks: np.ndarray | None = None,
+        sample_names: list[str] | None = None,
+    ) -> list[dict]:
+        """Throughput form of run_edit_null_space_projection over N samples.
+
+        ONE inversion and ONE generation to edit_t run the whole (N, H, W, C)
+        batch; the bases and the strip denoise stay per sample. Per-sample
+        disk artifacts (basis caches, direction files, PNGs) are written
+        exactly as N single runs would.
+
+        masks: (N, H, W, C) boolean. Returns one result dict per sample.
+        """
+        cfg = self.cfg
+        if (x0s is None) == (xTs is None):
+            raise ValueError("pass exactly one of x0s / xTs")
+        n = (x0s if xTs is None else xTs).shape[0]
+        if masks is None or masks.shape[0] != n:
+            raise ValueError(f"run_edit_batch needs one mask per sample ({n})")
+        names = sample_names or [f"batch{i:03d}" for i in range(n)]
+        self.timings = {}
+        with _Phase(self.timings, "invert", self.device):
+            xTs = self.invert(x0s) if xTs is None else self._tensor(xTs)
+        with _Phase(self.timings, "generate", self.device):
+            xts = self.generate(xTs, 0, self.edit_t_idx)
+
+        results = []
+        for i in range(n):
+            out_dir = os.path.join(cfg.result_folder, names[i])
+            os.makedirs(out_dir, exist_ok=True)
+            with _Phase(self.timings, "basis", self.device):
+                vT, basis_name = self._resolve_basis(
+                    xts[i:i + 1], masks[i:i + 1], out_dir)
+            with _Phase(self.timings, "strips", self.device):
+                strips = self._render_strips(xts[i:i + 1], vT, out_dir, basis_name)
+            results.append({"xt": _host(xts[i:i + 1]), "vT": _host(vT),
+                            "strips": strips, "edit_t_idx": self.edit_t_idx,
+                            "out_dir": out_dir})
+        with _Phase(self.timings, "io", self.device):
+            self.flush_io()
+        return results
+
+    def group_edit(self, xT, vT_paths: list[str],
+                   sample_name: str = "group") -> np.ndarray:
+        """Sequential composition of saved directions: apply each direction's
+        full walk offset (scale * num_step) in turn, and denoise every stage
+        (the starting xt included) in one boosted batch."""
+        cfg = self.cfg
+        self.timings = {}
+        with _Phase(self.timings, "generate", self.device):
+            xt = self.generate(xT, 0, self.edit_t_idx)
+        frames = [xt]
+        cur = xt
+        for p in vT_paths:
+            vT, _ = load_directions(p)
+            vk = self._tensor(vT[0]).reshape(xt.shape[1:])
+            cur = cur + cfg.x_space_guidance_scale * cfg.x_space_guidance_num_step * vk
+            frames.append(cur)
+        with _Phase(self.timings, "strips", self.device):
+            edited = self.generate_chunked(torch.cat(frames, dim=0),
+                                           self.edit_t_idx, None, boost=True)
+            if cfg.pixel_output:
+                edited = to_uint8_pixels_device(edited)
+            edited = _host(edited)
+        if cfg.save_images:
+            save_image_grid(edited, os.path.join(cfg.result_folder, sample_name,
+                                                 "group_edit.png"))
+        return edited

@@ -12,6 +12,7 @@ from loco_edit_tpu_torch.ops.flash_attention import (AttentionFn, attention_plai
                                                      flash_attention_cuda)
 from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_cuda,
                                                group_norm_plain)
+from _torch_ddpm_shapes import DDPM_ATTN_SHAPES, DDPM_GN_EPS, DDPM_GN_SHAPES
 from _torch_p2_shapes import P2_GN_SHAPES
 
 pytestmark = pytest.mark.cuda
@@ -68,6 +69,19 @@ def test_groupnorm_kernel_at_every_p2_shape(chw, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chw", sorted(DDPM_GN_SHAPES))
+def test_groupnorm_kernel_at_every_ddpm_shape_eps_1e6(chw, dtype):
+    """Batch 2 at each (C, H, W) a CelebA_HQ_HF forward gives the kernel, at
+    the DDPM U-Net's eps 1e-6, with small-variance inputs where eps shows."""
+    x, s, bias = _gn_inputs(_card(), (2, *chw), dtype)
+    x = (x * 1e-3).to(dtype)
+    got = group_norm_cuda(x, s, bias, eps=DDPM_GN_EPS)
+    torch.cuda.synchronize()
+    ref = group_norm_plain(x, s, bias, eps=DDPM_GN_EPS)
+    assert (got.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_groupnorm_kernel_same_bits_every_run(dtype):
     """Two launches on one input give identical bits, also with launches of
     other batch sizes between them (the tickets are back at 0 after each)."""
@@ -115,6 +129,24 @@ def test_attention_bf16_ragged_tiles(n, d):
     torch.cuda.synchronize()
     ref = attention_plain(q, k, v)
     assert (got.float() - ref.float()).abs().max().item() <= ATOL[torch.bfloat16] / 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 256, 257])
+def test_attention_wide_heads_on_strided_views(n, d, dtype):
+    """The wide-head route (D / 128 output-column slices) at ragged N, on
+    head-split views of one packed qkv tensor, against the plain version
+    (bf16 3e-2, f32 5e-5); one launch per call."""
+    g = _card()
+    qkv = torch.randn(2, n, 3 * 2 * d, device="cuda", generator=g).to(dtype)
+    q, k, v = (t.reshape(2, n, 2, d).transpose(1, 2) for t in qkv.split(2 * d, -1))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    err = (got.float() - attention_plain(q, k, v).float()).abs().max().item()
+    assert err <= ATOL[dtype] / 2
 
 
 def test_attention_kernel_takes_strided_heads():
@@ -193,3 +225,23 @@ def test_tiny_adm_on_card_matches_cpu():
     got = gpu.eps_fn(x.cuda(), 321.0).cpu()
     ref = cpu.eps_fn(x, 321.0)
     assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
+def test_celeba_hq_hf_bf16_forward_launches_71_gn_and_6_attention():
+    """One full-width CelebA_HQ_HF forward in bf16 on the card: finite eps
+    of the input's shape, and the launch counters read exactly 71 GroupNorm
+    and 6 attention launches (every call went through a kernel, once)."""
+    _card()
+    from loco_edit_tpu_torch.models.ddpm import load_ddpm_denoiser
+
+    den = load_ddpm_denoiser("CelebA_HQ_HF", dtype=torch.bfloat16, device="cuda")
+    x = torch.randn(2, 256, 256, 3, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    gn0, at0 = group_norm_cuda.launches, flash_attention_cuda.launches
+    with torch.no_grad():
+        eps = den.eps_fn(x, 500.0)
+    torch.cuda.synchronize()
+    assert eps.shape == x.shape and eps.dtype == torch.float32
+    assert torch.isfinite(eps).all()
+    assert group_norm_cuda.launches - gn0 == sum(DDPM_GN_SHAPES.values()) == 71
+    assert flash_attention_cuda.launches - at0 == sum(DDPM_ATTN_SHAPES.values()) == 6

@@ -79,6 +79,24 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     assert pipe.device == torch.device("cpu")
 
 
+def test_cli_and_ddpm_loader_raise_without_a_card(monkeypatch, tmp_path):
+    """The CLI with no --device runs on the card, so without one it raises
+    before it loads anything; --device cpu runs."""
+    from loco_edit_tpu_torch.cli.main import main
+    from loco_edit_tpu_torch.models.ddpm import load_ddpm_denoiser
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--model_name", "TinyTest", "--dataset_name", "Random", "--use_mask",
+            "false", "--run_ddim_forward", "true", "--for_steps", "2", "--seed", "1",
+            "--result_folder", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_ddpm_denoiser("CelebA_HQ_HF")
+    out = main(argv + ["--device", "cpu"])
+    assert out["forward"].shape == (5, 32, 32, 3) and np.isfinite(out["forward"]).all()
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     from loco_edit_tpu_torch.ops.flash_attention import AttentionFn, flash_attention_cuda
     from loco_edit_tpu_torch.ops.groupnorm import group_norm_cuda
