@@ -37,10 +37,26 @@ Phases (any failure raises; nothing is caught and skipped):
      predict; directions finite and unit-norm; PNG and .npz artifacts
      written.
 
+  7. Stable Diffusion 2.1-base (seeded random weights, the fake prompt
+     encoder: the repo holds no SD weights or CLIP files). Phase 2's checks
+     at every call shape of one U-Net forward at batch 2 (CFG; cross-
+     attention at N_kv = 77, f32 GroupNorm at C = 2560), one VAE decode and
+     one VAE encode at 512 px; phase 3's at the U-Net eps (batch 1, a seeded
+     77 x 1024 context) and decode(PMP(z)) J.v at 512 px.
+  8. The SD edit through the CLI, bf16, full width and depth, over a box
+     mask.npz it writes: rank 5+5 dual basis through the 512 px decoder,
+     null-space projection, 5 PCs x 9-frame walks, chunked denoise and
+     decode. Cuts, printed with the phase: 20/20 steps (not 100) and a fixed
+     5 basis sweeps (min_iter = max_iter = 5). Then, from Python on the same
+     pipeline, the text-supervised direction (delta_zt_via_grad) and the
+     inversion of a seeded 512 px image through the encoder. Each run's
+     launches must be 61 GN + 32 attention per U-Net forward, 30 + 1 per
+     decode and 22 + 1 per encode, its forwards what its steps predict.
+
 Launch counts are set to 0 just before each main path (phases 4, 6 edit,
-6 group) and read just after. The last three lines of standard output are
-the card's name and power limit (nvidia-smi), the kernels' JSON line and
-the result line.
+6 group, 8 edit, 8 delta, 8 invert) and read just after. The last three
+lines of standard output are the card's name and power limit (nvidia-smi),
+the kernels' JSON line and the result line.
 """
 
 from __future__ import annotations
@@ -64,6 +80,10 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
 # |y| <= 4 for attention)
 TOL = {("groupnorm", "float32"): 1e-4, ("groupnorm", "bfloat16"): 6e-2,
        ("flash_attention", "float32"): 5e-5, ("flash_attention", "bfloat16"): 3e-2}
+# SD rows, bf16 attention: two bf16 ulps of the largest output, never under
+# the 3e-2 above (77 keys average little: outputs reach |y| > 4, where one
+# ulp is 2^-5)
+BF16_ULPS = 2 * 2 ** -7
 # full-width f32 forward and J.v, card vs CPU, relative to the largest value
 FWD_RTOL = 1e-3
 
@@ -138,8 +158,8 @@ def phase_build():
 
 
 def record_call_shapes(model, tag):
-    """Input shapes of every GroupNorm ((C, H, W)) and attention ((heads, N,
-    D)) call of one forward of an ADM ("P2") or DDPM model."""
+    """(C, H, W, eps) of every GroupNorm and (heads, N_q, N_kv, D) of every
+    attention call of one forward of an ADM ("P2") or DDPM model."""
     if tag == "P2":
         from loco_edit_tpu_torch.models.adm.unet import AttentionBlock as Attn
         from loco_edit_tpu_torch.models.adm.unet import GroupNorm32 as Norm
@@ -147,16 +167,17 @@ def record_call_shapes(model, tag):
         from loco_edit_tpu_torch.models.ddpm.unet import AttnBlock as Attn
         from loco_edit_tpu_torch.models.ddpm.unet import Norm
 
+    eps = MODELS[tag][0]
     gn, attn, hooks = [], [], []
     for m in model.modules():
         if isinstance(m, Norm):
             hooks.append(m.register_forward_pre_hook(
-                lambda mod, a: gn.append(tuple(a[0].shape[1:]))))
+                lambda mod, a: gn.append(tuple(a[0].shape[1:]) + (eps,))))
         elif isinstance(m, Attn):
-            hooks.append(m.register_forward_pre_hook(
-                lambda mod, a: attn.append(
-                    (getattr(mod, "heads", 1), a[0].shape[2] * a[0].shape[3],
-                     a[0].shape[1] // getattr(mod, "heads", 1)))))
+            def rec(mod, a):
+                heads, n = getattr(mod, "heads", 1), a[0].shape[2] * a[0].shape[3]
+                attn.append((heads, n, n, a[0].shape[1] // heads))
+            hooks.append(m.register_forward_pre_hook(rec))
     x = torch.zeros(1, 256, 256, 3, device="cuda")
     with torch.no_grad():
         model(x, 500.0)
@@ -165,74 +186,127 @@ def record_call_shapes(model, tag):
     return gn, attn
 
 
-# per model: GN eps, GN and attention calls per forward
-MODELS = {"P2": (1e-5, 65, 4), "DDPM": (1e-6, 71, 6)}
+def record_sd_call_shapes(models):
+    """{"SD-UNet", "SD-decode", "SD-encode"} -> (GN calls (C, H, W, eps),
+    attention calls (heads, N_q, N_kv, D)) of one forward each of the SD
+    bundle's models, recorded with forward pre-hooks."""
+    from loco_edit_tpu_torch.models.sd.unet import CrossAttention, GroupNormF32
+    from loco_edit_tpu_torch.models.sd.vae import VAEAttention
+
+    out = {}
+    runs = {"SD-UNet": (models["unet"], (torch.zeros(1, 64, 64, 4, device="cuda"), 500.0,
+                                         torch.zeros(1, 77, 1024, device="cuda"))),
+            "SD-decode": (models["decoder"], (torch.zeros(1, 64, 64, 4, device="cuda"),)),
+            "SD-encode": (models["encoder"], (torch.zeros(1, 512, 512, 3, device="cuda"),))}
+    for tag, (model, args) in runs.items():
+        gn, attn, hooks = [], [], []
+        for m in model.modules():
+            if isinstance(m, GroupNormF32):
+                hooks.append(m.register_forward_pre_hook(
+                    lambda mod, a: gn.append(tuple(a[0].shape[1:]) + (mod.eps,))))
+            elif isinstance(m, CrossAttention):
+                def rec(mod, a, kw):
+                    x, ctx = a[0], (a[1] if len(a) > 1 else kw.get("context"))
+                    n_kv = x.shape[1] if ctx is None else ctx.shape[1]
+                    attn.append((mod.heads, x.shape[1], n_kv, x.shape[2] // mod.heads))
+                hooks.append(m.register_forward_pre_hook(rec, with_kwargs=True))
+            elif isinstance(m, VAEAttention):
+                def rec_vae(mod, a):
+                    n = a[0].shape[2] * a[0].shape[3]
+                    attn.append((1, n, n, a[0].shape[1]))
+                hooks.append(m.register_forward_pre_hook(rec_vae))
+        with torch.no_grad():
+            model(*args)
+        for h in hooks:
+            h.remove()
+        out[tag] = (gn, attn)
+    return out
 
 
-def phase_kernels(model, tag):
-    from loco_edit_tpu_torch.ops.flash_attention import (attention_plain,
-                                                         flash_attention_cuda, route)
+# per model: GN eps, GN and attention calls per forward, batch sizes timed
+MODELS = {"P2": (1e-5, 65, 4, (1, 45)), "DDPM": (1e-6, 71, 6, (1, 45)),
+          "SD-UNet": (None, 61, 32, (2,)), "SD-decode": (None, 30, 1, (1,)),
+          "SD-encode": (None, 22, 1, (1,))}
+
+
+def gn_row(tag, dtype, b, shape, per_forward, g):
     from loco_edit_tpu_torch.ops.groupnorm import group_norm_cuda, group_norm_plain
 
-    eps, n_gn, n_attn = MODELS[tag]
-    gn_calls, attn_calls = record_call_shapes(model, tag)
+    c, h, w, eps = shape
+    dt = str(dtype).split(".")[1]
+    x = (torch.randn(b, h, w, c, device="cuda", generator=g) * 2 + 0.3)
+    x = x.to(dtype).permute(0, 3, 1, 2)
+    s = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    y = group_norm_cuda(x, s, bias, eps=eps)
+    same_bits = torch.equal(y, group_norm_cuda(x, s, bias, eps=eps))
+    err = (y.float() - group_norm_plain(x, s, bias, eps=eps).float()).abs().max().item()
+    nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
+    bms, by = bound(nbytes, 8 * x.numel(), "float32")
+    sl, bl = s.to(dtype), bias.to(dtype)
+    return dict(
+        model=tag, kernel="groupnorm", dtype=dt, shape=[b, c, h, w],
+        route="vec16-two-launch", eps=eps, same_bits=same_bits,
+        per_forward=per_forward, max_abs_err=err, tol=TOL[("groupnorm", dt)],
+        ms=cuda_ms(lambda: group_norm_cuda(x, s, bias, eps=eps)),
+        plain_ms=cuda_ms(lambda: group_norm_plain(x, s, bias, eps=eps)),
+        library_ms=cuda_ms(lambda: F.group_norm(x, 32, sl, bl, eps)),
+        device_ms=graph_ms(lambda: group_norm_cuda(x, s, bias, eps=eps)),
+        library_device_ms=graph_ms(lambda: F.group_norm(x, 32, sl, bl, eps)),
+        bound_ms=bms, bound_by=by)
+
+
+def attn_row(tag, dtype, b, shape, per_forward, g):
+    from loco_edit_tpu_torch.ops.flash_attention import (attention_plain,
+                                                         flash_attention_cuda, route)
+
+    heads, nq, nkv, d = shape
+    dt = str(dtype).split(".")[1]
+    q = torch.randn(b, heads, nq, d, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(b, heads, nkv, d, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    ref = attention_plain(q, k, v).float()
+    err = (flash_attention_cuda(q, k, v).float() - ref).abs().max().item()
+    tol = TOL[("flash_attention", dt)]
+    if tag.startswith("SD") and dtype == torch.bfloat16:
+        tol = max(tol, BF16_ULPS * ref.abs().max().item())
+    bms, by = bound(2 * b * heads * (nq + nkv) * d * q.element_size(),
+                    4 * b * heads * nq * nkv * d, dt)
+    return dict(
+        model=tag, kernel="flash_attention", dtype=dt, shape=[b, heads, nq, nkv, d],
+        route=route(dtype, d), per_forward=per_forward, max_abs_err=err, tol=tol,
+        ms=cuda_ms(lambda: flash_attention_cuda(q, k, v)),
+        plain_ms=cuda_ms(lambda: attention_plain(q, k, v)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=d ** -0.5)),
+        device_ms=graph_ms(lambda: flash_attention_cuda(q, k, v)),
+        library_device_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=d ** -0.5)),
+        bound_ms=bms, bound_by=by)
+
+
+def kernel_rows(tag, gn_calls, attn_calls):
+    """Every distinct GN and attention call of one forward of model `tag`,
+    in f32 and bf16, at its batch sizes: checked against the plain
+    version, timed, printed; the per-forward sums printed."""
+    _, n_gn, n_attn, batches = MODELS[tag]
     if len(gn_calls) != n_gn or len(attn_calls) != n_attn:
         fail(f"a {tag} forward made {len(gn_calls)} GroupNorm and {len(attn_calls)} "
              f"attention calls, expected {n_gn} and {n_attn}")
     g = torch.Generator("cuda").manual_seed(0)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        dt = str(dtype).split(".")[1]
-        for (c, h, w) in sorted(set(gn_calls)):
-            for b in (1, 45):
-                x = (torch.randn(b, h, w, c, device="cuda", generator=g) * 2 + 0.3)
-                x = x.to(dtype).permute(0, 3, 1, 2)
-                s = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
-                bias = 0.1 * torch.randn(c, device="cuda", generator=g)
-                y = group_norm_cuda(x, s, bias, eps=eps)
-                same_bits = torch.equal(y, group_norm_cuda(x, s, bias, eps=eps))
-                err = (y.float() - group_norm_plain(x, s, bias, eps=eps).float()
-                       ).abs().max().item()
-                nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
-                bms, by = bound(nbytes, 8 * x.numel(), "float32")
-                sl, bl = s.to(dtype), bias.to(dtype)
-                rows.append(dict(
-                    model=tag, kernel="groupnorm", dtype=dt, shape=[b, c, h, w],
-                    route="vec16-two-launch", eps=eps, same_bits=same_bits,
-                    per_forward=gn_calls.count((c, h, w)), max_abs_err=err,
-                    tol=TOL[("groupnorm", dt)],
-                    ms=cuda_ms(lambda: group_norm_cuda(x, s, bias, eps=eps)),
-                    plain_ms=cuda_ms(lambda: group_norm_plain(x, s, bias, eps=eps)),
-                    library_ms=cuda_ms(lambda: F.group_norm(x, 32, sl, bl, eps)),
-                    device_ms=graph_ms(lambda: group_norm_cuda(x, s, bias, eps=eps)),
-                    library_device_ms=graph_ms(lambda: F.group_norm(x, 32, sl, bl, eps)),
-                    bound_ms=bms, bound_by=by))
-        for (heads, n, d) in sorted(set(attn_calls)):
-            for b in (1, 45):
-                q, k, v = (torch.randn(b, heads, n, d, device="cuda", generator=g)
-                           .to(dtype) for _ in range(3))
-                err = (flash_attention_cuda(q, k, v).float()
-                       - attention_plain(q, k, v).float()).abs().max().item()
-                bms, by = bound(4 * q.numel() * q.element_size(),
-                                4 * b * heads * n * n * d, dt)
-                rows.append(dict(
-                    model=tag, kernel="flash_attention", dtype=dt, shape=[b, heads, n, d],
-                    route=route(dtype, d),
-                    per_forward=attn_calls.count((heads, n, d)), max_abs_err=err,
-                    tol=TOL[("flash_attention", dt)],
-                    ms=cuda_ms(lambda: flash_attention_cuda(q, k, v)),
-                    plain_ms=cuda_ms(lambda: attention_plain(q, k, v)),
-                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, scale=d ** -0.5)),
-                    device_ms=graph_ms(lambda: flash_attention_cuda(q, k, v)),
-                    library_device_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, scale=d ** -0.5)),
-                    bound_ms=bms, bound_by=by))
+        for shape in sorted(set(gn_calls)):
+            for b in batches:
+                rows.append(gn_row(tag, dtype, b, shape, gn_calls.count(shape), g))
+        for shape in sorted(set(attn_calls)):
+            for b in batches:
+                rows.append(attn_row(tag, dtype, b, shape, attn_calls.count(shape), g))
     for r in rows:
         r["bound_share"] = r["bound_ms"] / r["ms"]
-        log(f"[2 kernels] {tag:4s} {r['kernel']:15s} {r['dtype']:8s} "
-            f"{str(r['shape']):22s} {r['route']:25s} x{r['per_forward']}/fwd err "
-            f"{r['max_abs_err']:.2e} (tol {r['tol']:.0e}) kernel {r['ms']:.4f} ms plain "
+        log(f"[2 kernels] {tag:9s} {r['kernel']:15s} {r['dtype']:8s} "
+            f"{str(r['shape']):25s} {r['route']:25s} x{r['per_forward']}/fwd err "
+            f"{r['max_abs_err']:.2e} (tol {r['tol']:.1e}) kernel {r['ms']:.4f} ms plain "
             f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}) share {r['bound_share']:.3f}; device only: kernel "
             f"{r['device_ms']:.4f} library {r['library_device_ms']:.4f}")
@@ -243,7 +317,7 @@ def phase_kernels(model, tag):
     if unstable:
         fail(f"GroupNorm gave other bits on a second launch at {unstable}")
     for name in ("groupnorm", "flash_attention"):
-        for b in (1, 45):
+        for b in batches:
             tot = forward_sums(rows, name, b, tag)
             log(f"[2 kernels] {name} bf16 {tag} forward at batch {b}: kernel "
                 f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, library "
@@ -254,6 +328,10 @@ def phase_kernels(model, tag):
                 f"bound share {tot['bound_ms'] / tot['device_ms']:.3f}, kernel / library "
                 f"{tot['device_ms'] / tot['library_device_ms']:.2f}")
     return rows
+
+
+def phase_kernels(model, tag):
+    return kernel_rows(tag, *record_call_shapes(model, tag))
 
 
 SUM_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms")
@@ -267,27 +345,37 @@ def forward_sums(rows, name, batch, tag):
     return {k: sum(r[k] * r["per_forward"] for r in mine) for k in SUM_KEYS}
 
 
+# model tag -> (key prefix in the kernels line, batch of the plain keys,
+# batch of the keys ending in _b45 or None)
+SUMMARY = {"P2": ("", 1, 45), "DDPM": ("ddpm_", 1, 45), "SD-UNet": ("sd_unet_", 2, None),
+           "SD-decode": ("sd_decode_", 1, None), "SD-encode": ("sd_encode_", 1, None)}
+
+
 def summarize(rows, name, source, replaces, launches):
     """One kernels-line entry: the sums over the calls of one P2 forward in
     bf16 at batch 1 under the plain keys, at batch 45 under the keys ending
-    in _b45, and the same sums of one CelebA_HQ_HF forward under keys
-    starting with ddpm_. `launches` maps each main path to its count; the
-    entry's `launches` is their total."""
+    in _b45; the same sums of one CelebA_HQ_HF forward under keys starting
+    with ddpm_, of one SD U-Net forward at batch 2 under sd_unet_ and of one
+    VAE decode / encode under sd_decode_ / sd_encode_. `launches` maps each
+    main path to its count; the entry's `launches` is their total."""
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": sum(launches.values()), "launches_by_path": launches,
              "max_abs_err": max(r["max_abs_err"] for r in rows
                                 if r["kernel"] == name and r["dtype"] == "bfloat16")}
-    for tag, prefix in (("P2", ""), ("DDPM", "ddpm_")):
+    for tag, (prefix, b1, b2) in SUMMARY.items():
         mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"
-                and r["shape"][0] == 1 and r["model"] == tag]
-        tot = forward_sums(rows, name, 1, tag)
-        b45 = forward_sums(rows, name, 45, tag)
+                and r["shape"][0] == b1 and r["model"] == tag]
+        if not mine:
+            continue
+        tot = forward_sums(rows, name, b1, tag)
         by_bytes = sum(r["per_forward"] * r["bound_ms"] for r in mine
                        if r["bound_by"] == "bytes")
         entry.update({f"{prefix}{k}": tot[k] for k in SUM_KEYS})
         entry[f"{prefix}bound_by"] = ("bytes" if by_bytes >= tot["bound_ms"] / 2
                                       else "operations")
-        entry.update({f"{prefix}{k}_b45": b45[k] for k in SUM_KEYS})
+        if b2:
+            b45 = forward_sums(rows, name, b2, tag)
+            entry.update({f"{prefix}{k}_b45": b45[k] for k in SUM_KEYS})
     return entry
 
 
@@ -425,15 +513,17 @@ def write_celeba_tree(root, size=256, seed=3):
 
 
 class ForwardCounter:
-    """Counts forward calls of one module class (a global forward pre-hook;
+    """Counts forward calls of module classes (a global forward pre-hook;
     transforms such as vmap and jvp run a forward once per call)."""
 
-    def __init__(self, cls):
-        self.cls, self.calls = cls, 0
+    def __init__(self, *classes):
+        self.classes = classes
+        self.calls = {c.__name__: 0 for c in classes}
 
     def _hook(self, mod, args):
-        if isinstance(mod, self.cls):
-            self.calls += 1
+        for c in self.classes:
+            if isinstance(mod, c):
+                self.calls[c.__name__] += 1
 
     def __enter__(self):
         self.handle = torch.nn.modules.module.register_module_forward_pre_hook(self._hook)
@@ -443,16 +533,17 @@ class ForwardCounter:
         self.handle.remove()
 
 
-def run_main_path(fn, model_cls):
+def run_main_path(fn, *model_classes):
     """fn() with the kernels' launch counts set to 0 just before and read
-    just after, the forwards of model_cls counted, the peak device memory
-    and the wall time taken."""
-    from loco_edit_tpu_torch.ops.flash_attention import flash_attention_cuda
-    from loco_edit_tpu_torch.ops.groupnorm import group_norm_cuda
+    just after, the forwards of each model class counted (by class name),
+    the peak device memory and the wall time taken."""
+    from loco_edit_tpu_torch.ops.flash_attention import AttentionFn, flash_attention_cuda
+    from loco_edit_tpu_torch.ops.groupnorm import GroupNormFn, group_norm_cuda
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with ForwardCounter(model_cls) as fwd:
+    copies0 = GroupNormFn.layout_copies, AttentionFn.layout_copies
+    with ForwardCounter(*model_classes) as fwd:
         group_norm_cuda.launches = 0
         flash_attention_cuda.launches = 0
         t0 = time.perf_counter()
@@ -461,6 +552,9 @@ def run_main_path(fn, model_cls):
         total_s = time.perf_counter() - t0
         launches = {"groupnorm": group_norm_cuda.launches,
                     "flash_attention": flash_attention_cuda.launches}
+    copies = {"groupnorm": GroupNormFn.layout_copies - copies0[0],
+              "flash_attention": AttentionFn.layout_copies - copies0[1]}
+    log(f"[layout] copies made to hand the kernels their layout: {copies}")
     return out, launches, fwd.calls, total_s, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
@@ -486,6 +580,7 @@ def phase_ddpm_cli(work_dir):
         "--run_edit_null_space_projection true")
     res, launches, fwd, total_s, peak = run_main_path(
         lambda: cli_main(argv + ["--run_edit_null_space_projection", "true"]), DDPMUNet)
+    fwd = fwd["DDPMUNet"]
     out = res["edit"]
     t_idx = out["edit_t_idx"]
     fixed = (steps - 2) + t_idx + (steps - 1 - t_idx)   # invert + generate + strips
@@ -524,6 +619,7 @@ def phase_ddpm_cli(work_dir):
                          "--vT1_path", os.path.join(basis, "pc_001-vT.npz")]
     res, g_launches, g_fwd, g_total_s, g_peak = run_main_path(
         lambda: cli_main(group_argv), DDPMUNet)
+    g_fwd = g_fwd["DDPMUNet"]
     frames = res["group"]
     png = os.path.join(out["out_dir"], "group_edit.png")
     g_checks = {"frames": frames.shape == (3, 256, 256, 3) and bool(np.isfinite(frames).all()),
@@ -539,6 +635,198 @@ def phase_ddpm_cli(work_dir):
     if g_launches != g_predicted:
         fail(f"DDPM CLI group edit launches {g_launches} != predicted {g_predicted}")
     return launches, g_launches
+
+
+SD_CUTS = "for_steps 20 and inv_steps 20 (not 100); 5 basis sweeps (min_iter = max_iter = 5)"
+
+
+def load_sd_models(dtype: str):
+    """SD 2.1-base U-Net, VAE encoder and decoder with seeded random weights
+    on the card, through the CLI's registry (load_sd_bundle)."""
+    import argparse
+
+    from loco_edit_tpu_torch.models.t2i_registry import load_sd_bundle
+
+    args = argparse.Namespace(dtype=dtype, checkpoint_path="", vae_path="",
+                              text_encoder_path="", device="cuda")
+    return load_sd_bundle(args)["models"]
+
+
+def phase_sd_forward_vs_cpu(models):
+    """The full-width f32 U-Net eps (batch 1, a seeded 77 x 1024 context) and
+    J.v of decode(PMP(z)) at 512 px: the card against the CPU."""
+    from loco_edit_tpu_torch.diffusion import LinspaceDDIM
+
+    cpu = {}
+    for name, m in models.items():
+        if name == "encoder":
+            continue
+        with torch.device("cpu"):
+            cpu[name] = type(m)(m.cfg)
+        cpu[name].load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        cpu[name].requires_grad_(False).eval()
+    sched = LinspaceDDIM(noise_schedule="scaled_linear")
+    grid = sched.generation_grid(20)
+    idx = sched.nearest_step_index(20, 0.7)
+    t, ab, sf = float(grid.t[idx]), float(grid.alpha_bar[idx]), 0.18215
+    rng = np.random.default_rng(1)
+    z = torch.from_numpy(rng.normal(size=(1, 64, 64, 4)).astype(np.float32))
+    ctx = torch.from_numpy((rng.normal(size=(1, 77, 1024)) * 0.2).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(1, 64, 64, 4)).astype(np.float32))
+    v = v / v.norm()
+    out = {}
+    for dev, (unet, dec) in (("cuda", (models["unet"], models["decoder"])),
+                             ("cpu", (cpu["unet"], cpu["decoder"]))):
+        zd, cd = z.to(dev), ctx.to(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            eps = unet(zd, t, cd)
+
+        def f(zz):
+            e = unet(zz, t, cd)
+            return dec((zz - e * np.sqrt(1.0 - ab)) / np.sqrt(ab) / sf)
+
+        jv = torch.func.jvp(f, (zd,), (v.to(dev),))[1]
+        out[dev] = (eps.cpu(), jv.cpu(), time.perf_counter() - t0)
+    res = {}
+    for i, name, shape in ((0, "eps", (1, 64, 64, 4)), (1, "jv", (1, 512, 512, 3))):
+        a, b = out["cuda"][i], out["cpu"][i]
+        if not (torch.isfinite(a).all() and tuple(a.shape) == shape):
+            fail(f"full-width SD {name} on the card is not finite of shape {shape}")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        res[name] = (rel, b.abs().max().item())
+        if not rel <= FWD_RTOL:
+            fail(f"full-width f32 SD {name}: card vs CPU relative error {rel:.2e} "
+                 f"> {FWD_RTOL:.0e}")
+    log(f"[3 forward] SD 2.1-base f32 t={t:.2f}: eps rel err {res['eps'][0]:.2e} (max "
+        f"|eps| {res['eps'][1]:.3f}), decode(PMP) J.v rel err {res['jv'][0]:.2e} (max "
+        f"|Jv| {res['jv'][1]:.3f}), tol {FWD_RTOL:.0e}; forward+jvp card "
+        f"{out['cuda'][2]:.2f} s, CPU {out['cpu'][2]:.2f} s")
+
+
+def check_sd_launches(what, launches, fwd, predicted_fwd):
+    """Launches must be 61 GN + 32 attention per U-Net forward, 30 + 1 per
+    decode, 22 + 1 per encode; forwards what the run's steps predict."""
+    u, d, e = fwd["SDUNet"], fwd["VAEDecoder"], fwd["VAEEncoder"]
+    predicted = {"groupnorm": 61 * u + 30 * d + 22 * e,
+                 "flash_attention": 32 * u + d + e}
+    log(f"[8 sd] {what}: forwards U-Net {u}, decode {d}, encode {e} (predicted "
+        f"{predicted_fwd}); launches {launches}, predicted {predicted}")
+    if (u, d, e) != predicted_fwd:
+        fail(f"SD {what}: forwards {(u, d, e)} != predicted {predicted_fwd}")
+    if launches != predicted:
+        fail(f"SD {what}: launches {launches} != predicted {predicted}: a path went "
+             "around a kernel or launched it more than once per forward")
+
+
+def phase_sd_cli(work_dir, image_px=512):
+    """The SD edit through the CLI, then the text-supervised direction and an
+    inversion from Python on the CLI's pipeline. Returns the launch counts
+    of each run. image_px: the VAE's image size (a CPU rehearsal with a
+    tiny bundle passes its own)."""
+    import functools
+
+    from loco_edit_tpu_torch.cli.main import main as cli_main
+    from loco_edit_tpu_torch.models.sd import SDUNet, VAEDecoder, VAEEncoder
+    from loco_edit_tpu_torch.pipelines import sd as sd_pipeline
+
+    root = os.path.join(work_dir, "sd")
+    mask_dir = os.path.join(root, "Stable_Diffusion-Random-", "results", "mask")
+    os.makedirs(mask_dir)
+    px = image_px
+    masks = np.zeros((1, px, px, 3), bool)
+    masks[:, px // 4:3 * px // 4, 5 * px // 16:11 * px // 16] = True
+    np.savez(os.path.join(mask_dir, "mask.npz"), masks=masks)
+    for_prompt, edit_prompt = "a photo of a cat", "a photo of a cat wearing sunglasses"
+    argv = ["--model_name", "stabilityai/stable-diffusion-2-1-base", "--dtype", "bf16",
+            "--device", "cuda", "--dataset_name", "Random", "--for_prompt", for_prompt,
+            "--edit_prompt", edit_prompt, "--guidance_scale", "7.5",
+            "--for_steps", "20", "--inv_steps", "20", "--edit_t", "0.7",
+            "--performance_boosting_t", "0", "--use_x_space_guidance", "true",
+            "--h_t", "0.7", "--x_space_guidance_num_step", "8", "--vis_num", "4",
+            "--pca_rank", "5", "--pca_rank_null", "5", "--null_space_projection", "true",
+            "--use_mask", "true", "--run_edit_null_space_projection_zt", "true",
+            "--seed", "1", "--result_folder", root]
+    log(f"[8 sd] python -m loco_edit_tpu_torch.cli.main {' '.join(argv)}; cuts: {SD_CUTS}")
+    pipes = []
+    run_zt = sd_pipeline.SDEditPipeline.run_edit_null_space_projection_zt
+
+    def capture(self, *a, **k):
+        pipes.append(self)
+        return run_zt(self, *a, **k)
+
+    config = sd_pipeline.SDEditConfig
+    sd_pipeline.SDEditPipeline.run_edit_null_space_projection_zt = capture
+    sd_pipeline.SDEditConfig = functools.partial(config, min_iter=5, max_iter=5)
+    try:
+        res, launches, fwd, total_s, peak = run_main_path(
+            lambda: cli_main(argv), SDUNet, VAEDecoder, VAEEncoder)
+    finally:
+        sd_pipeline.SDEditPipeline.run_edit_null_space_projection_zt = run_zt
+        sd_pipeline.SDEditConfig = config
+    pipe = pipes[0]
+    out = res["edit"]
+    n_frames = 5 * 9
+    chunks = -(-n_frames // pipe.cfg.memory_bound)
+    steps_left = len(pipe.gen_grid) - pipe.edit_t_idx
+    vT = out["vT"]
+    norms = np.linalg.norm(vT, axis=1)
+    lat = (1,) + tuple(pipe.latent_shape)
+    files = sorted(os.listdir(out["out_dir"])) + sorted(
+        os.listdir(os.path.join(out["out_dir"], "basis")))
+    checks = {
+        "config": (pipe.cfg.min_iter, pipe.cfg.max_iter, pipe.cfg.memory_bound) == (5, 5, 5),
+        "zt": out["zt"].shape == lat and bool(np.isfinite(out["zt"]).all()),
+        "vT_shape": list(vT.shape) == [5, int(np.prod(lat))],
+        "vT_finite": bool(np.isfinite(vT).all()),
+        "vT_unit_norm": bool(np.abs(norms - 1).max() < 1e-4),
+        "strips": sorted(out["strips"]) == list(range(5)) and all(
+            s.shape == (9, px, px, 3) and np.isfinite(s).all()
+            for s in out["strips"].values()),
+        "pngs": sum(f.startswith("edit-zt-0.7T-pc") and f.endswith(".png")
+                    for f in files) == 5,
+        "npz": "vT.npz" in files and sum(f.startswith(("vT-modify-", "vT-null-"))
+                                         for f in files) == 2,
+    }
+    phases = {k: round(v, 3) for k, v in res["timings"]["edit"].items()}
+    log(f"[8 sd] edit: {total_s:.2f} s total (model build included); phases (s) "
+        f"{phases}; peak device memory {peak:.2f} GiB; {chunks} strip chunks of "
+        f"{pipe.cfg.memory_bound} frames; checks {checks}; |vT| rows "
+        f"{norms.round(6).tolist()}")
+    if not all(checks.values()):
+        fail(f"SD CLI edit checks failed: {checks}")
+    check_sd_launches("edit", launches, fwd, (
+        pipe.edit_t_idx + 1 + 5 + chunks * steps_left, 1 + 5 + chunks, 0))
+
+    prompts = pipe.prompt_set(for_prompt, edit_prompt)
+    mode = pipe.cfg.tilda_v_score_type
+    d_vT, d_launches, d_fwd, d_s, d_peak = run_main_path(
+        lambda: pipe.delta_zt_via_grad(out["zt"], prompts, masks, mode),
+        SDUNet, VAEDecoder, VAEEncoder)
+    d_vT = d_vT.cpu().numpy()
+    d_checks = {"shape": d_vT.shape == (1, int(np.prod(lat))),
+                "finite": bool(np.isfinite(d_vT).all()),
+                "unit_norm": abs(float(np.linalg.norm(d_vT)) - 1) < 1e-4}
+    log(f"[8 sd] delta_zt_via_grad ({mode}): {d_s:.2f} s; peak device memory "
+        f"{d_peak:.2f} GiB; checks {d_checks}")
+    if not all(d_checks.values()):
+        fail(f"SD text-supervised direction checks failed: {d_checks}")
+    check_sd_launches("delta_zt_via_grad", d_launches, d_fwd, (3, 3, 0))
+
+    yy, xx = np.mgrid[:px, :px] / px
+    img = np.random.default_rng(4).uniform(-0.2, 0.2, (px, px, 3))
+    x0 = np.clip(np.stack([yy, xx, 1 - yy], -1) * 1.6 - 0.8 + img, -1, 1)
+    zT, i_launches, i_fwd, i_s, i_peak = run_main_path(
+        lambda: pipe.invert(x0[None].astype(np.float32)), SDUNet, VAEDecoder, VAEEncoder)
+    i_checks = {"shape": tuple(zT.shape) == lat,
+                "finite": bool(torch.isfinite(zT).all())}
+    log(f"[8 sd] invert ({px} px image, {len(pipe.inv_grid)} steps): {i_s:.2f} s; peak "
+        f"device memory {i_peak:.2f} GiB; |zT| std {zT.float().std().item():.3f}; "
+        f"checks {i_checks}")
+    if not all(i_checks.values()):
+        fail(f"SD inversion checks failed: {i_checks}")
+    check_sd_launches("invert", i_launches, i_fwd, (len(pipe.inv_grid), 0, 1))
+    return launches, d_launches, i_launches
 
 
 def main() -> int:
@@ -568,6 +856,11 @@ def main() -> int:
     rows += phase_kernels(ddpm32.meta["model"], "DDPM")
     phase_forward_vs_cpu(ddpm32, "CelebA_HQ_HF")
     del ddpm32
+    sd32 = load_sd_models("fp32")
+    for tag, calls in record_sd_call_shapes(sd32).items():
+        rows += kernel_rows(tag, *calls)
+    phase_sd_forward_vs_cpu(sd32)
+    del sd32
     torch.cuda.empty_cache()
 
     den16 = load_adm_denoiser("FFHQ_P2", dtype=torch.bfloat16, device="cuda", seed=0)
@@ -577,9 +870,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
         edit_launches, group_launches = phase_ddpm_cli(work_dir)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work_dir:
+        sd_edit, sd_delta, sd_invert = phase_sd_cli(work_dir)
 
     paths = {"p2_flagship": p2_launches, "ddpm_cli_edit": edit_launches,
-             "ddpm_cli_group_edit": group_launches}
+             "ddpm_cli_group_edit": group_launches, "sd_cli_edit": sd_edit,
+             "sd_delta_zt_via_grad": sd_delta, "sd_invert": sd_invert}
     kernels = [
         summarize(rows, "groupnorm", "loco_edit_tpu_torch/csrc/groupnorm.cu",
                   "loco_edit_tpu/ops/pallas/groupnorm_stats.py:70",

@@ -4,11 +4,12 @@ script archiving, per-family input sizes, the x-space-guidance scale lookup,
 the scheduler invariants), plus `--device`, the port's counterpart of
 JAX_PLATFORMS: the card ("cuda", the default) or "cpu".
 
-The port runs the unconditional engines. `check_supported` raises
+The port runs the unconditional engines and the Stable Diffusion engine.
+`check_supported` raises
 NotImplementedError, naming the ROADMAP.md item that ports it, for every
 flag set to a value this port cannot honour yet; no flag is silently
 ignored. SAM masks are refused where they would be made
-(cli/main.py::get_sample_and_mask).
+(cli/main.py::get_sample_and_mask, cli/main.py::_t2i_mask).
 """
 
 from __future__ import annotations
@@ -182,8 +183,7 @@ UNPORTED = {
     "verify_load": ("", "Queue A item 14 (cli/verify_load.py)"),
     "sampling_mode": (False, "Queue A item 13 (SAM masks)"),
 }
-T2I_FAMILIES = {"stable-diffusion": "Queue A item 10 (SD family)",
-                "LCM": "Queue A item 11 (LCM)",
+T2I_FAMILIES = {"LCM": "Queue A item 11 (LCM)",
                 "DeepFloyd": "Queue A item 12 (DeepFloyd-IF)"}
 
 

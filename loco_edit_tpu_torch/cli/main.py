@@ -1,6 +1,6 @@
-"""CLI entry point for the unconditional engines (port of the uncond part of
-loco_edit_tpu/cli/main.py): parse flags, preset, build the engine, dispatch
-experiments. Runs on the card unless `--device cpu`.
+"""CLI entry point (port of the uncond and SD parts of
+loco_edit_tpu/cli/main.py): parse flags, preset, build the engine for the
+model family, dispatch experiments. Runs on the card unless `--device cpu`.
 
 Run e.g.:
   python -m loco_edit_tpu_torch.cli.main --model_name CelebA_HQ_HF \
@@ -9,6 +9,16 @@ Run e.g.:
       --run_edit_null_space_projection true --null_space_projection true \
       --edit_t 0.6 --performance_boosting_t 0.2 --use_x_space_guidance true \
       --x_space_guidance_num_step 16 --h_t 0.6
+
+or, for Stable Diffusion 2.1-base (a cached result_folder/mask/mask.npz
+selects the edit region):
+  python -m loco_edit_tpu_torch.cli.main \
+      --model_name stabilityai/stable-diffusion-2-1-base --dtype bf16 \
+      --checkpoint_path unet.bin --vae_path vae.bin --text_encoder_path clip/ \
+      --for_prompt "a photo of a cat" --guidance_scale 7.5 --edit_t 0.7 \
+      --performance_boosting_t 0 --use_x_space_guidance true --h_t 0.7 \
+      --x_space_guidance_num_step 8 --run_edit_null_space_projection_zt true \
+      --null_space_projection true
 """
 
 from __future__ import annotations
@@ -88,10 +98,13 @@ def main(argv=None):
 def main_dispatch(args) -> dict:
     """Run the experiments the flags select. Returns their outputs by name:
     "forward" and "inversion" (numpy batches), "edit" (the result dict of
-    run_edit_null_space_projection), "group" (the group-edit frames), and
-    "timings" (seconds per pipeline phase of "edit" and "group")."""
+    run_edit_null_space_projection, or of run_edit_null_space_projection_zt
+    for SD), "group" (the group-edit frames), and "timings" (seconds per
+    pipeline phase of "edit" and "group")."""
     from loco_edit_tpu_torch.utils.io import save_image_grid
 
+    if args.is_stable_diffusion:
+        return _main_sd(args)
     pipe, denoiser, rng = build_uncond_pipeline(args)
     results = {"timings": {}}
 
@@ -127,6 +140,74 @@ def main_dispatch(args) -> dict:
             xT, [args.vT_path, args.vT1_path],
             sample_name=f"sample_idx{args.sample_idx}")
         results["timings"]["group"] = dict(pipe.timings)
+    return results
+
+
+def build_sd_pipeline(args):
+    from loco_edit_tpu_torch.core.rng import seed_everything
+    from loco_edit_tpu_torch.models.t2i_registry import load_sd_bundle
+    from loco_edit_tpu_torch.pipelines.sd import SDEditConfig, SDEditPipeline
+
+    rng = seed_everything(args.seed)
+    b = load_sd_bundle(args)
+    cfg = SDEditConfig(
+        for_steps=args.for_steps, inv_steps=args.inv_steps,
+        inv_refine_steps=args.inv_refine_steps,
+        edit_t=args.edit_t, guidance_scale=args.guidance_scale,
+        guidance_scale_edit=args.guidance_scale_edit,
+        x_space_guidance_scale=args.x_space_guidance_scale,
+        x_space_guidance_edit_step=args.x_space_guidance_edit_step,
+        x_space_guidance_num_step=args.x_space_guidance_num_step,
+        vis_num=args.vis_num, vis_num_pc=args.pca_rank,
+        pca_rank=args.pca_rank, pca_rank_null=args.pca_rank_null,
+        null_space_projection=args.null_space_projection,
+        use_sega=args.use_sega,
+        tilda_v_score_type=args.tilda_v_score_type
+        or "null+(for-null)+(edit-null)",
+        memory_bound=args.memory_bound,
+        probe_chunk=args.probe_chunk or None,
+        pixel_output=args.pixel_output,
+        result_folder=args.result_folder)
+    pipe = SDEditPipeline(b["unet_apply"], b["decode"], b["encode"],
+                          b["prompt_encoder"], cfg, rng,
+                          latent_shape=b["latent_shape"], device=args.device)
+    return pipe, b, rng
+
+
+def _t2i_mask(args):
+    """The edit mask of a T2I engine: the cached result_folder/mask/mask.npz
+    ("masks", (n, H, W, 3) bool; --mask_index picks one). Making the cache
+    needs SAM, which is not ported."""
+    mask_path = os.path.join(args.result_folder, "mask", "mask.npz")
+    if os.path.exists(mask_path):
+        with np.load(mask_path) as z:
+            return z["masks"][args.mask_index][None].astype(bool)
+    raise NotImplementedError(
+        f"no cached mask at {mask_path}: making one needs SAM, which is not "
+        "ported yet (ROADMAP.md Queue A item 13); write the mask there or "
+        "pass --use_mask false")
+
+
+def _main_sd(args) -> dict:
+    from loco_edit_tpu_torch.utils.io import save_image_grid
+
+    semantic = args.run_edit_null_space_projection_zt_semantic
+    edit = args.run_edit_null_space_projection_zt or semantic
+    # read before the models are built: a missing mask fails fast
+    mask = _t2i_mask(args) if edit and args.use_mask else None
+    pipe, b, rng = build_sd_pipeline(args)
+    results = {"timings": {}}
+    if args.run_ddim_forward:
+        zT = rng.fork("fwd").normal((5,) + tuple(b["latent_shape"]), device=pipe.device)
+        img = pipe.decode_to_image(pipe.generate(
+            zT, pipe.prompt_set(args.for_prompt, args.edit_prompt), "null+(for-null)"))
+        save_image_grid(img, os.path.join(args.result_folder, "DDIMforward.png"))
+        results["forward"] = img
+    if edit:
+        results["edit"] = pipe.run_edit_null_space_projection_zt(
+            args.for_prompt, args.edit_prompt, mask=mask, semantic=semantic,
+            vT_path=args.vT_path or None)
+        results["timings"]["edit"] = dict(pipe.timings)
     return results
 
 

@@ -26,9 +26,12 @@
 //     with quad shuffles; P is rounded to bf16 in registers and fed as the A
 //     operand of P V; the final division by the row sum is in f32. The
 //     output goes through shared memory for 16-byte stores.
-//   - Any N: the ragged last key tile is zero-filled by cp.async and masked
-//     to -inf; query rows >= N are not stored. Strided (head-split) views
-//     are taken as they are; the wrapper checks 16-byte alignment.
+//   - Any N_q and N_kv (the SD U-Net's cross-attention has N_q = 4096..64
+//     queries against N_kv = 77 text keys): the key loop runs to N_kv, the
+//     ragged last key tile (77 = 64 + 13) is zero-filled by cp.async (a
+//     source size of 0) and its logits past N_kv are set to -inf before the
+//     running max; query rows >= N_q are not stored. Strided (head-split)
+//     views are taken as they are; the wrapper checks 16-byte alignment.
 //   - Wide heads (D = 256, 512; the DDPM U-Net's D = C = 512): a third grid
 //     axis cuts the output columns into D / 128 slices. Each block still
 //     forms the full logits S over all D (Q stays whole in shared memory,
@@ -189,8 +192,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                          int heads, int n, Strides sq, Strides sk, Strides sv,
-                          Strides so, float scale) {
+                          int heads, int nq, int nkv, Strides sq, Strides sk,
+                          Strides sv, Strides so, float scale) {
   using G = Geo<D>;
   constexpr int DV = G::kDV;
   constexpr int kBlockK = G::kBlockK;
@@ -220,11 +223,11 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h + c0;
   bf16* ob = o + b * so.b + h * so.h + c0;
-  const int num_tiles = (n + kBlockK - 1) / kBlockK;
+  const int num_tiles = (nkv + kBlockK - 1) / kBlockK;
 
-  load_tile<kBlockQ, D, QS>(qs, qb + q0 * sq.n, sq.n, n - q0, tid);
-  load_tile<kBlockK, D, QS>(ks, kb, sk.n, n, tid);
-  load_tile<kBlockK, DV, VS>(vs, vb, sv.n, n, tid);
+  load_tile<kBlockQ, D, QS>(qs, qb + q0 * sq.n, sq.n, nq - q0, tid);
+  load_tile<kBlockK, D, QS>(ks, kb, sk.n, nkv, tid);
+  load_tile<kBlockK, DV, VS>(vs, vb, sv.n, nkv, tid);
   cp_async_commit();
 
   unsigned qf[G::kQInRegs ? kKSteps : 1][4];
@@ -243,9 +246,9 @@ __global__ void __launch_bounds__(kThreads)
     if (t + 1 < num_tiles) {
       const int j1 = j0 + kBlockK;
       load_tile<kBlockK, D, QS>(ks + (cur ^ 1) * G::kKElems, kb + j1 * sk.n,
-                                sk.n, n - j1, tid);
+                                sk.n, nkv - j1, tid);
       load_tile<kBlockK, DV, VS>(vs + (cur ^ 1) * G::kVElems, vb + j1 * sv.n,
-                                 sv.n, n - j1, tid);
+                                 sv.n, nkv - j1, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -289,12 +292,12 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    if (j0 + kBlockK > n) {          // ragged last tile
+    if (j0 + kBlockK > nkv) {        // ragged last key tile
 #pragma unroll
       for (int i = 0; i < kKeyTiles; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (j0 + i * 8 + 2 * t4 + (e & 1) >= n) s[i][e] = -INFINITY;
+          if (j0 + i * 8 + 2 * t4 + (e & 1) >= nkv) s[i][e] = -INFINITY;
     }
 
     // Online softmax in f32 for rows g (e = 0, 1) and g + 8 (e = 2, 3).
@@ -369,7 +372,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = i % kChunks;
     const int row = q0 + warp * 16 + r;
-    if (row < n)
+    if (row < nq)
       *reinterpret_cast<uint4*>(ob + row * so.n + c * 8) =
           *reinterpret_cast<const uint4*>(stage + r * QS + c * 8);
   }
@@ -377,8 +380,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int heads, int n, Strides sq, Strides sk, Strides sv, Strides so,
-           float scale, cudaStream_t stream) {
+           int heads, int nq, int nkv, Strides sq, Strides sk, Strides sv,
+           Strides so, float scale, cudaStream_t stream) {
   constexpr int smem = Geo<D>::kSmemBytes;
   static bool configured = false;
   if (!configured) {
@@ -388,11 +391,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, b * heads, Geo<D>::kSlices);
+  const dim3 grid((nq + kBlockQ - 1) / kBlockQ, b * heads, Geo<D>::kSlices);
   flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), heads, n, sq, sk, sv,
-      so, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), heads, nq, nkv, sq,
+      sk, sv, so, scale);
   return (int)cudaGetLastError();
 }
 
@@ -423,8 +426,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         int heads, int n, Strides sq, Strides sk, Strides sv,
-                         Strides so, float scale) {
+                         int heads, int nq, int nkv, Strides sq, Strides sk,
+                         Strides sv, Strides so, float scale) {
   using G = Geo<D>;
   constexpr int DV = G::kDV;
   constexpr int kBlockK = G::kBlockK;
@@ -451,7 +454,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    qs[i] = (q0 + r < n) ? qb[(q0 + r) * sq.n + d] * scale : 0.f;
+    qs[i] = (q0 + r < nq) ? qb[(q0 + r) * sq.n + d] * scale : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
@@ -463,22 +466,22 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < kDimsPerLane; ++e) acc[r][e] = 0.f;
   }
 
-  for (int j0 = 0; j0 < n; j0 += kBlockK) {
+  for (int j0 = 0; j0 < nkv; j0 += kBlockK) {
     __syncthreads();  // previous tile fully consumed (and q tile written)
     for (int i = tid; i < kBlockK * D; i += kThreads) {
       const int j = i / D, d = i % D;
-      ks[j * (D + 1) + d] = (j0 + j < n) ? kb[(j0 + j) * sk.n + d] * scale : 0.f;
+      ks[j * (D + 1) + d] = (j0 + j < nkv) ? kb[(j0 + j) * sk.n + d] * scale : 0.f;
     }
     for (int i = tid; i < kBlockK * DV; i += kThreads) {
       const int j = i / DV, d = i % DV;
-      vs[i] = (j0 + j < n) ? vb[(j0 + j) * sv.n + d] : 0.f;
+      vs[i] = (j0 + j < nkv) ? vb[(j0 + j) * sv.n + d] : 0.f;
     }
     __syncthreads();
 
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int row = warp * kRowsPerWarp + r;
-      if (q0 + row >= n) continue;  // warp-uniform
+      if (q0 + row >= nq) continue;  // warp-uniform
       const float* qrow = qs + row * D;
       float s[kKeysPerLane];
       float tile_max = -INFINITY;
@@ -489,7 +492,7 @@ __global__ void __launch_bounds__(kThreads)
         float dot = 0.f;
 #pragma unroll 16
         for (int d = 0; d < D; ++d) dot += qrow[d] * krow[d];
-        s[i] = (j0 + j < n) ? dot : -INFINITY;
+        s[i] = (j0 + j < nkv) ? dot : -INFINITY;
         tile_max = fmaxf(tile_max, s[i]);
       }
       tile_max = warp_max(tile_max);
@@ -524,7 +527,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = warp * kRowsPerWarp + r;
-    if (q0 + row >= n) continue;
+    if (q0 + row >= nq) continue;
     const float inv_l = 1.f / l[r];
 #pragma unroll
     for (int e = 0; e < kDimsPerLane; ++e) {
@@ -536,8 +539,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int heads, int n, Strides sq, Strides sk, Strides sv, Strides so,
-           float scale, cudaStream_t stream) {
+           int heads, int nq, int nkv, Strides sq, Strides sk, Strides sv,
+           Strides so, float scale, cudaStream_t stream) {
   const size_t smem = Geo<D>::kSmemFloats * sizeof(float);
   static bool configured = false;
   if (!configured) {
@@ -547,11 +550,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, b * heads, Geo<D>::kSlices);
+  const dim3 grid((nq + kBlockQ - 1) / kBlockQ, b * heads, Geo<D>::kSlices);
   flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), heads, n, sq, sk,
-      sv, so, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), heads, nq, nkv, sq,
+      sk, sv, so, scale);
   return (int)cudaGetLastError();
 }
 
@@ -559,14 +562,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 template <bool kBf16>
 int dispatch(int d, const void* q, const void* k, const void* v, void* o,
-             int b, int heads, int n, Strides sq, Strides sk, Strides sv,
-             Strides so, float scale, cudaStream_t stream) {
+             int b, int heads, int nq, int nkv, Strides sq, Strides sk,
+             Strides sv, Strides so, float scale, cudaStream_t stream) {
 #define LOCO_ATTN_CASE(D)                                                     \
   case D:                                                                     \
-    return kBf16 ? tc::launch<D>(q, k, v, o, b, heads, n, sq, sk, sv, so,     \
-                                 scale, stream)                               \
-                 : simt::launch<D>(q, k, v, o, b, heads, n, sq, sk, sv, so,    \
-                                  scale, stream);
+    return kBf16 ? tc::launch<D>(q, k, v, o, b, heads, nq, nkv, sq, sk, sv,   \
+                                 so, scale, stream)                           \
+                 : simt::launch<D>(q, k, v, o, b, heads, nq, nkv, sq, sk, sv,  \
+                                   so, scale, stream);
   switch (d) {
     LOCO_ATTN_CASE(16)
     LOCO_ATTN_CASE(32)
@@ -581,13 +584,14 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, k, v, o: (B, H, N, D) with element strides (b, h, n) each and a head
-// dim of stride 1; f32 (is_bf16 = 0, FMA route) or bf16 (is_bf16 = 1,
-// tensor-core route: pointers 16-byte aligned, strides multiples of 8).
-// D in {16, 32, 64, 128, 256, 512}. Returns cudaGetLastError().
+// q, o: (B, H, N_q, D); k, v: (B, H, N_kv, D); element strides (b, h, n)
+// each and a head dim of stride 1; f32 (is_bf16 = 0, FMA route) or bf16
+// (is_bf16 = 1, tensor-core route: pointers 16-byte aligned, strides
+// multiples of 8). D in {16, 32, 64, 128, 256, 512}; N_q, N_kv >= 1.
+// Returns cudaGetLastError().
 extern "C" int loco_flash_attention(
     const void* q, const void* k, const void* v, void* o, int b, int heads,
-    int n, int d, long long sqb, long long sqh, long long sqn, long long skb,
+    int n, int n_kv, int d, long long sqb, long long sqh, long long sqn, long long skb,
     long long skh, long long skn, long long svb, long long svh, long long svn,
     long long sob, long long soh, long long son, float scale, int is_bf16,
     void* stream) {
@@ -595,6 +599,8 @@ extern "C" int loco_flash_attention(
       so{sob, soh, son};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<true>(d, q, k, v, o, b, heads, n, sq, sk, sv, so, scale, s);
-  return dispatch<false>(d, q, k, v, o, b, heads, n, sq, sk, sv, so, scale, s);
+    return dispatch<true>(d, q, k, v, o, b, heads, n, n_kv, sq, sk, sv, so,
+                          scale, s);
+  return dispatch<false>(d, q, k, v, o, b, heads, n, n_kv, sq, sk, sv, so,
+                         scale, s);
 }

@@ -14,9 +14,14 @@
 //
 // What the design does about it, in two launches:
 //   - Every thread moves 16 bytes per load and store (8 bf16 or 4 f32
-//     channels); a block is (C / vec) x rows threads, so a warp reads whole
-//     contiguous runs of pixels, and each thread starts kUnroll loads before
-//     it uses any of them.
+//     channels); a block is (C / vec / NV) x rows threads, so a warp reads
+//     whole contiguous runs of pixels, and each thread starts kUnroll loads
+//     of each of its NV vectors before it uses any of them. NV = 1 up to
+//     512 vectors a pixel; wider rows (f32 at C = 2560, the SD U-Net's skip
+//     concatenation: 640 vectors) give each thread NV = 2 vectors, the
+//     second blockDim.x vectors after the first, so a block row stays
+//     within 512 threads and each channel keeps one thread and one
+//     summation order.
 //   - Launch 1 (statistics): grid (chunks, B). Each block sums its chunk of
 //     pixels per channel in registers, reduces rows and then the channels of
 //     each group in shared memory in a fixed order, and writes per-chunk
@@ -80,10 +85,10 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-// Launch 1. grid (chunks, B), block (C / vec, rows). part: per-chunk group
+// Launch 1. grid (chunks, B), block (C / vec / NV, rows). part: per-chunk group
 // sums then sums of squares, each (B, chunks, G); stats: mean (B, G) then
 // rstd (B, G); tickets: (B,) ints, 0 on entry and on exit.
-template <typename T>
+template <typename T, int NV>
 __global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
                                 float* __restrict__ stats, int* __restrict__ tickets,
                                 int hw, int c, int groups, int chunk, float eps) {
@@ -97,40 +102,50 @@ __global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ par
   const int nb = gridDim.y;
   const int nchunks = gridDim.x;
   const int ch0 = threadIdx.x * kVec;
+  const int vstride = blockDim.x * kVec;  // channels between a thread's vectors
   const int p1 = min((blockIdx.x + 1) * chunk, hw);
   const T* xb = x + (size_t)b * hw * c + ch0;
 
-  float s[kVec], ss[kVec];
+  float s[NV][kVec], ss[NV][kVec];
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) s[j] = ss[j] = 0.f;
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) s[v][j] = ss[v][j] = 0.f;
   for (int p = blockIdx.x * chunk + threadIdx.y; p < p1; p += rows * kUnroll) {
-    uint4 u[kUnroll];
+    uint4 u[kUnroll][NV];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const int pk = p + k * rows;
-      u[k] = pk < p1 ? __ldg(reinterpret_cast<const uint4*>(xb + (size_t)pk * c))
-                     : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        u[k][v] = pk < p1 ? __ldg(reinterpret_cast<const uint4*>(
+                                xb + (size_t)pk * c + v * vstride))
+                          : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      float f[kVec];
-      Vec<T>::unpack(u[k], f);
+    for (int k = 0; k < kUnroll; ++k)
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        s[j] += f[j];
-        ss[j] += f[j] * f[j];
+      for (int v = 0; v < NV; ++v) {
+        float f[kVec];
+        Vec<T>::unpack(u[k][v], f);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          s[v][j] += f[j];
+          ss[v][j] += f[j] * f[j];
+        }
       }
-    }
   }
 
   // Rows, then the channels of each group, in a fixed order.
   float* sh_s = sh;                 // [rows][C]
   float* sh_ss = sh + rows * c;
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    sh_s[threadIdx.y * c + ch0 + j] = s[j];
-    sh_ss[threadIdx.y * c + ch0 + j] = ss[j];
-  }
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      sh_s[threadIdx.y * c + ch0 + v * vstride + j] = s[v][j];
+      sh_ss[threadIdx.y * c + ch0 + v * vstride + j] = ss[v][j];
+    }
   __syncthreads();
   for (int ch = tid; ch < c; ch += nthreads) {
     float a = sh_s[ch], a2 = sh_ss[ch];
@@ -193,9 +208,9 @@ __global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ par
   if (tid == 0) tickets[b] = 0;
 }
 
-// Launch 2. grid (chunks, B), block (C / vec, rows):
+// Launch 2. grid (chunks, B), block (C / vec / NV, rows):
 // y = (x - mean) * rstd * scale + bias, in x's dtype.
-template <typename T>
+template <typename T, int NV>
 __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
                                 const float* __restrict__ stats,
                                 const float* __restrict__ scale,
@@ -205,55 +220,82 @@ __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
   const int rows = blockDim.y;
   const int b = blockIdx.y;
   const int ch0 = threadIdx.x * kVec;
+  const int vstride = blockDim.x * kVec;
   const int cg = c / groups;
-  float mu[kVec], rs[kVec], sc[kVec], bi[kVec];
+  float mu[NV][kVec], rs[NV][kVec], sc[NV][kVec], bi[NV][kVec];
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    const int g = (ch0 + j) / cg;
-    mu[j] = stats[b * groups + g];
-    rs[j] = stats[(gridDim.y + b) * groups + g];
-    sc[j] = scale[ch0 + j];
-    bi[j] = bias[ch0 + j];
-  }
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int ch = ch0 + v * vstride + j;
+      const int g = ch / cg;
+      mu[v][j] = stats[b * groups + g];
+      rs[v][j] = stats[(gridDim.y + b) * groups + g];
+      sc[v][j] = scale[ch];
+      bi[v][j] = bias[ch];
+    }
   const int p1 = min((blockIdx.x + 1) * chunk, hw);
   const size_t base = (size_t)b * hw * c + ch0;
   for (int p = blockIdx.x * chunk + threadIdx.y; p < p1; p += rows * kUnroll) {
-    uint4 u[kUnroll];
+    uint4 u[kUnroll][NV];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const int pk = p + k * rows;
-      if (pk < p1)
-        u[k] = __ldcs(reinterpret_cast<const uint4*>(x + base + (size_t)pk * c));
+      if (pk < p1) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          u[k][v] = __ldcs(reinterpret_cast<const uint4*>(
+              x + base + (size_t)pk * c + v * vstride));
+      }
     }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const int pk = p + k * rows;
       if (pk >= p1) break;
-      float f[kVec];
-      Vec<T>::unpack(u[k], f);
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) f[j] = (f[j] - mu[j]) * rs[j] * sc[j] + bi[j];
-      *reinterpret_cast<uint4*>(y + base + (size_t)pk * c) = Vec<T>::pack(f);
+      for (int v = 0; v < NV; ++v) {
+        float f[kVec];
+        Vec<T>::unpack(u[k][v], f);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j)
+          f[j] = (f[j] - mu[v][j]) * rs[v][j] * sc[v][j] + bi[v][j];
+        *reinterpret_cast<uint4*>(y + base + (size_t)pk * c + v * vstride) =
+            Vec<T>::pack(f);
+      }
     }
   }
 }
 
-template <typename T>
+template <typename T, int NV>
 int launch(const void* x, void* y, const float* scale, const float* bias,
            float* work, int* tickets, int b, int hw, int c, int groups,
            float eps, int rows, int chunk, cudaStream_t stream) {
   const int nchunks = (hw + chunk - 1) / chunk;
   float* part = work;
   float* stats = work + 2 * (size_t)b * nchunks * groups;
-  const dim3 grid(nchunks, b), block(c / Vec<T>::kN, rows);
+  const dim3 grid(nchunks, b), block(c / Vec<T>::kN / NV, rows);
   const int fin = 2 * groups * kSubsets, red = 2 * rows * c;
   const size_t smem = (fin > red ? fin : red) * sizeof(float);
-  gn_stats_kernel<T><<<grid, block, smem, stream>>>(
+  gn_stats_kernel<T, NV><<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), part, stats, tickets, hw, c, groups, chunk, eps);
-  gn_apply_kernel<T><<<grid, block, 0, stream>>>(
+  gn_apply_kernel<T, NV><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), stats, scale, bias, hw, c,
       groups, chunk);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_nv(int nvec, const void* x, void* y, const float* scale,
+              const float* bias, float* work, int* tickets, int b, int hw,
+              int c, int groups, float eps, int rows, int chunk,
+              cudaStream_t stream) {
+  if (nvec == 1)
+    return launch<T, 1>(x, y, scale, bias, work, tickets, b, hw, c, groups,
+                        eps, rows, chunk, stream);
+  if (nvec == 2)
+    return launch<T, 2>(x, y, scale, bias, work, tickets, b, hw, c, groups,
+                        eps, rows, chunk, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -261,16 +303,18 @@ int launch(const void* x, void* y, const float* scale, const float* bias,
 // x, y: (B, H*W, C) contiguous and 16-byte aligned, f32 (is_bf16 = 0) or
 // bf16 (is_bf16 = 1). scale, bias: (C,) f32. work: f32 scratch of
 // 2 * B * ceil(HW / chunk) * groups + 2 * B * groups floats. tickets: B ints,
-// all 0 (left 0). rows and chunk from ops/groupnorm.py::launch_geometry.
-// Requires C % 32 == 0 and C % groups == 0. Returns cudaGetLastError().
+// all 0 (left 0). nvec (1 or 2), rows and chunk from
+// ops/groupnorm.py::launch_geometry. Requires C % 32 == 0, C % groups == 0
+// and C / vec % nvec == 0. Returns cudaGetLastError().
 extern "C" int loco_group_norm(const void* x, void* y, const float* scale,
                                const float* bias, float* work, int* tickets,
                                int b, int hw, int c, int groups, float eps,
-                               int rows, int chunk, int is_bf16, void* stream) {
+                               int nvec, int rows, int chunk, int is_bf16,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, y, scale, bias, work, tickets, b, hw, c,
-                                 groups, eps, rows, chunk, s);
-  return launch<float>(x, y, scale, bias, work, tickets, b, hw, c, groups, eps,
-                       rows, chunk, s);
+    return launch_nv<__nv_bfloat16>(nvec, x, y, scale, bias, work, tickets, b,
+                                    hw, c, groups, eps, rows, chunk, s);
+  return launch_nv<float>(nvec, x, y, scale, bias, work, tickets, b, hw, c,
+                          groups, eps, rows, chunk, s);
 }

@@ -29,7 +29,7 @@ class Denoiser:
 def init_random_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights: every conv / dense / embedding weight from a
     truncated normal of variance 1/fan_in (Flax's lecun_normal), biases
-    zero, GroupNorm affine left at (1, 0). Unlike the JAX package's init, the
+    zero, GroupNorm and LayerNorm affine left at (1, 0). Unlike the JAX package's init, the
     zero-initialized output layers (ResBlock out_conv, proj_out, the final
     conv) get the same random weights, so eps is not identically zero and
     every layer reaches the output and the Jacobian."""
@@ -43,6 +43,7 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
             m.weight.copy_(w)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(generator=generator)

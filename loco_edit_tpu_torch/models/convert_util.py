@@ -80,3 +80,27 @@ def check_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module,
         raise ValueError(f"{what} do not match the model: missing "
                          f"{missing[:5]}, unexpected {extra[:5]}, shape "
                          f"mismatch {shapes[:5]}")
+
+
+class KeyTracker:
+    """Wraps a state_dict and records every key read, so a converter can
+    require full coverage: a partial load (geometry mismatch, renamed keys)
+    is an error, not random-looking outputs."""
+
+    def __init__(self, sd: Mapping):
+        self.sd = sd
+        self.used: set[str] = set()
+
+    def __getitem__(self, k):
+        self.used.add(k)
+        return self.sd[k]
+
+    def __contains__(self, k):
+        return k in self.sd
+
+    def check(self, what: str) -> None:
+        leftovers = sorted(set(self.sd) - self.used)
+        if leftovers:
+            raise ValueError(
+                f"{what} conversion left {len(leftovers)} checkpoint keys "
+                f"unconsumed (geometry mismatch?): {leftovers[:8]}...")

@@ -1,0 +1,117 @@
+"""T2I model bundles for the CLI (port of the SD part of
+loco_edit_tpu/models/t2i_registry.py).
+
+Local checkpoint paths only: --checkpoint_path for the U-Net (a diffusers
+state_dict `.pt`/`.pth`/`.bin`/`.ckpt`/`.safetensors`, or a `.npz` of Flax
+parameters), --vae_path for the AutoencoderKL (a diffusers state_dict),
+--text_encoder_path for CLIP (a transformers directory). A missing path
+gives seeded random weights (U-Net seed 0, encoder 1, decoder 2) and the
+deterministic fake prompt encoder, enough to drive the whole engine.
+LOCO_SD_PRESET (e.g. `tiny`) picks another U-Net preset, as in the JAX
+package.
+
+Unlike the JAX package, the bundle leaves per-block rematerialization off:
+torch.utils.checkpoint does not compose with torch.func's jvp and vmap, and
+an 80 GB card holds the rank-5+5 basis through the 512 px decoder without it.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from loco_edit_tpu_torch.core.device import resolve_device
+from loco_edit_tpu_torch.models.convert_util import check_state_dict
+from loco_edit_tpu_torch.models.sd import (SDUNet, VAEConfig, VAEDecoder, VAEEncoder,
+                                           encode_sample, sd_preset)
+from loco_edit_tpu_torch.models.sd.text import clip_prompt_encoder, fake_prompt_encoder
+
+TORCH_CKPT = (".pt", ".pth", ".bin", ".ckpt", ".safetensors")
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    return torch.bfloat16 if name in ("bf16", "fp16") else torch.float32
+
+
+def _load_unet(cfg, path: str, device: torch.device) -> SDUNet:
+    with torch.device(device):
+        model = SDUNet(cfg)
+    if path:
+        if path.endswith(TORCH_CKPT):
+            from loco_edit_tpu_torch.models.adm.convert import load_torch_checkpoint
+            from loco_edit_tpu_torch.models.sd.convert import convert_sd_unet_state_dict
+
+            sd = convert_sd_unet_state_dict(load_torch_checkpoint(path), cfg)
+        elif path.endswith(".npz"):
+            from loco_edit_tpu_torch.models.sd.convert import sd_params_from_flax
+
+            with np.load(path) as z:
+                sd = sd_params_from_flax({k: z[k] for k in z.files}, cfg)
+        else:
+            raise ValueError(f"unsupported checkpoint format: {path}")
+        check_state_dict(sd, model, f"checkpoint {path}")
+        model.load_state_dict(sd)
+    else:
+        model.init_random_(torch.Generator(device).manual_seed(0))
+    return model.requires_grad_(False).eval()
+
+
+def _load_vae(cfg: VAEConfig, path: str, device: torch.device):
+    with torch.device(device):
+        enc, dec = VAEEncoder(cfg), VAEDecoder(cfg)
+    if path:
+        if not path.endswith(TORCH_CKPT):
+            raise ValueError(f"unsupported VAE checkpoint format: {path}")
+        from loco_edit_tpu_torch.models.adm.convert import load_torch_checkpoint
+        from loco_edit_tpu_torch.models.sd.convert import convert_vae_state_dict
+
+        pe, pd = convert_vae_state_dict(load_torch_checkpoint(path), cfg)
+        enc.load_state_dict(pe)
+        dec.load_state_dict(pd)
+    else:
+        enc.init_random_(torch.Generator(device).manual_seed(1))
+        dec.init_random_(torch.Generator(device).manual_seed(2))
+    return enc.requires_grad_(False).eval(), dec.requires_grad_(False).eval()
+
+
+def sd_bundle(unet: SDUNet, enc: VAEEncoder, dec: VAEDecoder, prompt_encoder) -> dict:
+    """The engine's callables over bound models: unet_apply(z, t, ctx),
+    decode(z), encode(x, rng) (a sampled, scaled latent), the prompt
+    encoder, the latent shape, and the models under "models"."""
+    cfg = unet.cfg
+    return {
+        "unet_apply": lambda z, t, c: unet(z, t, c),
+        "decode": lambda z: dec(z),
+        "encode": lambda x, rng: encode_sample(*enc(x), rng,
+                                               enc.cfg.scaling_factor),
+        "prompt_encoder": prompt_encoder,
+        "latent_shape": (cfg.sample_size, cfg.sample_size, cfg.out_channels),
+        "models": {"unet": unet, "encoder": enc, "decoder": dec},
+    }
+
+
+def load_sd_bundle(args, lcm: bool = False) -> dict:
+    """SD 2.1-base (or the LOCO_SD_PRESET preset) on args.device: U-Net, VAE
+    at 8x the latent size, prompt encoder."""
+    if lcm:
+        raise NotImplementedError(
+            "the LCM bundle is not ported yet, see ROADMAP.md Queue A item 11 (LCM)")
+    device = resolve_device(getattr(args, "device", "cuda"))
+    dtype = _torch_dtype(args.dtype)
+    cfg = sd_preset(os.environ.get("LOCO_SD_PRESET") or "sd21-base", dtype=dtype)
+    unet = _load_unet(cfg, args.checkpoint_path, device)
+    # the VAE follows the compute dtype, as the JAX bundle's does
+    vae_cfg = VAEConfig(sample_size=cfg.sample_size * 8, dtype=dtype)
+    enc, dec = _load_vae(vae_cfg, getattr(args, "vae_path", ""), device)
+    path = getattr(args, "text_encoder_path", "")
+    prompt_encoder = (clip_prompt_encoder(path, device=device) if path
+                      else fake_prompt_encoder(cfg.cross_attention_dim, device=device))
+    return sd_bundle(unet, enc, dec, prompt_encoder)
+
+
+def load_if_bundle(args):
+    raise NotImplementedError(
+        "the DeepFloyd-IF bundle is not ported yet, see ROADMAP.md Queue A item 12 "
+        "(DeepFloyd-IF)")

@@ -36,8 +36,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "loco_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
-                        _P],
-    "loco_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12
+                        _I, _P],
+    "loco_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 12
                             + [_F, _I, _P],
 }
 

@@ -7,6 +7,7 @@ JVP rule `_lean_attention_jvp` (attention.py:75-125).
 
 `AttentionFn` is the one entry. Its forward is `attention_plain` on CPU
 tensors and the kernel in csrc/flash_attention.cu on CUDA tensors, always.
+Queries and keys may differ in number (N_q, N_kv: the SD cross-attention).
 Its `jvp` is the lean rule: logits-sized tangents stay in the model dtype and
 dW @ V is formed as t @ V - c * out, so dW is never built. Its `backward` is
 that rule's transpose, which is what `jax.linear_transpose` derives in the
@@ -41,8 +42,9 @@ def _weights(q: torch.Tensor, k: torch.Tensor):
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of _xla_attention: q, k, v (B, H, N, D);
-    f32 logits and softmax, weights and output in the input dtype."""
+    """The plain PyTorch version of _xla_attention: q (B, H, N_q, D), k, v
+    (B, H, N_kv, D); f32 logits and softmax, weights and output in the
+    input dtype."""
     _, _, w = _weights(q, k)
     return torch.matmul(w, v)
 
@@ -67,31 +69,35 @@ def _kernel_layout(t: torch.Tensor) -> bool:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/flash_attention.cu. q, k, v: (B, H, N, D) CUDA tensors of
-    one dtype (f32 or bf16), head dim of stride 1 (bf16: 16-byte aligned,
-    strides multiples of 8), D in HEAD_DIMS, any N. Returns a contiguous
-    (B, H, N, D) tensor."""
+    """Launch csrc/flash_attention.cu. q: (B, H, N_q, D), k, v: (B, H, N_kv,
+    D) CUDA tensors of one dtype (f32 or bf16), head dim of stride 1 (bf16:
+    16-byte aligned, strides multiples of 8), D in HEAD_DIMS, any N_q and
+    N_kv >= 1. Returns a contiguous (B, H, N_q, D) tensor."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention_cuda: dtype {q.dtype} not supported")
+    if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]
+            or min(q.shape[2], k.shape[2]) < 1):
+        raise ValueError(f"flash_attention_cuda: q (B, H, N_q, D) and k, v "
+                         f"(B, H, N_kv, D) expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     for t in (q, k, v):
         if not t.is_cuda:
             raise ValueError("flash_attention_cuda takes CUDA tensors")
-        if t.dim() != 4 or t.shape != q.shape:
-            raise ValueError(f"flash_attention_cuda: q, k, v must share one "
-                             f"(B, H, N, D) shape, got {tuple(t.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError("flash_attention_cuda: q, k, v dtype/device differ")
         if not _kernel_layout(t):
             raise ValueError("flash_attention_cuda: head dim must have stride 1 "
                              "(bf16: 16-byte aligned, strides multiples of 8)")
     b, h, n, d = q.shape
+    n_kv = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {d} not in {HEAD_DIMS}")
     lib = _cuda.load_library()
     o = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     rc = lib.loco_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, n, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, n, n_kv, d,
         *strides, _scale(d), int(q.dtype == torch.bfloat16),
         _cuda.stream_of(q))
     _cuda.check(rc, "loco_flash_attention")
@@ -106,13 +112,18 @@ class AttentionFn(torch.autograd.Function):
     """sdp attention with the lean jvp, its transpose and a vmap rule."""
 
     generate_vmap_rule = False
+    layout_copies = 0     # CUDA inputs copied to a layout the kernel takes
 
     @staticmethod
     def forward(q, k, v):
         if q.is_cuda:
-            return flash_attention_cuda(
-                *(t if _kernel_layout(t) else t.clone(memory_format=torch.contiguous_format)
-                  for t in (q, k, v)))
+            args = []
+            for t in (q, k, v):
+                if not _kernel_layout(t):
+                    AttentionFn.layout_copies += 1
+                    t = t.clone(memory_format=torch.contiguous_format)
+                args.append(t)
+            return flash_attention_cuda(*args)
         if q.device.type != "cpu":
             raise RuntimeError(f"AttentionFn: no kernel for device {q.device}")
         return attention_plain(q, k, v)
@@ -166,6 +177,8 @@ class AttentionFn(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v):
+        # an unbatched input (the cross-attention's k and v, made from the
+        # context, carry no probe dimension) is expanded over the vmapped dim
         if all(d is None for d in in_dims):
             return AttentionFn.apply(q, k, v), None
         size = info.batch_size

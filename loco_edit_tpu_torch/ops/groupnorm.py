@@ -28,11 +28,13 @@ _THREADS = 256        # target threads per block of both launches
 _UNROLL = 4           # 16-byte loads in flight per thread (kUnroll in the .cu)
 _TARGET_BLOCKS = 2112     # 16 blocks per SM of a 132-SM H100: short chunks
 _MIN_BLOCK_BYTES = 32768  # balance the tail; small tensors keep >= 32 KB a block
+_MAX_THREADS_X = 512      # threads across C in one block row
 
 
 class GNGeometry(NamedTuple):
-    vec: int          # channels per thread (one 16-byte vector)
-    threads_x: int    # C / vec
+    vec: int          # channels per 16-byte vector
+    nvec: int         # vectors per thread: 1, or 2 above 512 vectors a pixel
+    threads_x: int    # C / vec / nvec
     rows: int         # pixel rows per block step
     chunk: int        # pixels per block
     chunks: int       # blocks per batch element
@@ -43,12 +45,14 @@ class GNGeometry(NamedTuple):
 def launch_geometry(b: int, c: int, hw: int, itemsize: int,
                     num_groups: int = 32) -> GNGeometry:
     """Launch geometry and scratch size of csrc/groupnorm.cu for a (B, C, H*W)
-    input of `itemsize`-byte elements: blocks of (C / vec) x rows threads, each
-    batch element cut into pixel chunks of whole unrolled steps, so that
-    B * chunks comes near _TARGET_BLOCKS where every block still reads
-    _MIN_BLOCK_BYTES."""
+    input of `itemsize`-byte elements: blocks of (C / vec / nvec) x rows
+    threads (nvec = 2 where one vector a thread would need more than
+    _MAX_THREADS_X threads, f32 at C > 2048), each batch element cut into
+    pixel chunks of whole unrolled steps, so that B * chunks comes near
+    _TARGET_BLOCKS where every block still reads _MIN_BLOCK_BYTES."""
     vec = 16 // itemsize
-    tx = c // vec
+    nvec = 1 if c // vec <= _MAX_THREADS_X else 2
+    tx = c // vec // nvec
     rows = max(1, _THREADS // tx)
     step = rows * _UNROLL
     steps = -(-hw // step)
@@ -56,7 +60,7 @@ def launch_geometry(b: int, c: int, hw: int, itemsize: int,
                 max(1, hw * c * itemsize // _MIN_BLOCK_BYTES))
     chunk = -(-steps // per_b) * step
     chunks = -(-hw // chunk)
-    return GNGeometry(vec, tx, rows, chunk, chunks,
+    return GNGeometry(vec, nvec, tx, rows, chunk, chunks,
                       2 * b * chunks * num_groups + 2 * b * num_groups)
 
 
@@ -140,7 +144,7 @@ def group_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError("group_norm_cuda: x must be 16-byte aligned "
                          "(the kernel moves 16-byte vectors)")
     geo = launch_geometry(b, c, h * w, x.element_size(), num_groups)
-    if geo.threads_x > 512:
+    if geo.threads_x > _MAX_THREADS_X or c % (geo.vec * geo.nvec):
         raise ValueError(f"group_norm_cuda: C={c} too wide for one block row")
     lib = _cuda.load_library()
     stream = _cuda.stream_of(x)
@@ -148,7 +152,7 @@ def group_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x, memory_format=torch.channels_last)
     rc = lib.loco_group_norm(
         x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), work,
-        tickets, b, h * w, c, num_groups, float(eps), geo.rows, geo.chunk,
+        tickets, b, h * w, c, num_groups, float(eps), geo.nvec, geo.rows, geo.chunk,
         int(x.dtype == torch.bfloat16), stream)
     _cuda.check(rc, "loco_group_norm")
     group_norm_cuda.launches += 1
@@ -162,12 +166,15 @@ class GroupNormFn(torch.autograd.Function):
     """group_norm_f32 with hand-written jvp / backward / vmap rules."""
 
     generate_vmap_rule = False
+    layout_copies = 0     # CUDA inputs copied to channels_last / 16-byte alignment
 
     @staticmethod
     def forward(x, scale, bias, num_groups, eps):
         if x.is_cuda:
-            x = x.contiguous(memory_format=torch.channels_last)
-            if x.data_ptr() % 16:
+            if (not x.is_contiguous(memory_format=torch.channels_last)
+                    or x.data_ptr() % 16):
+                # counted, so a run can show how often a caller's layout costs a copy
+                GroupNormFn.layout_copies += 1
                 x = x.clone(memory_format=torch.channels_last)
             return group_norm_cuda(x, scale.float().contiguous(),
                                    bias.float().contiguous(), num_groups, eps)

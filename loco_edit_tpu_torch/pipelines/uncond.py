@@ -41,7 +41,7 @@ from loco_edit_tpu_torch.editing.pullback import (eps_pullback_fn,
                                                   padded_probe_count,
                                                   pmp_pullback_fn)
 from loco_edit_tpu_torch.models.base import Denoiser
-from loco_edit_tpu_torch.pipelines.common import EngineExec
+from loco_edit_tpu_torch.pipelines.common import EngineExec, _host, _Phase
 from loco_edit_tpu_torch.utils.io import save_image_grid, to_uint8_pixels_device
 
 
@@ -71,27 +71,6 @@ class UncondEditConfig:
     pixel_output: bool = False
     result_folder: str = "./runs"
     save_images: bool = True
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
-
-
-class _Phase:
-    """Wall time of one pipeline phase, ended by a device synchronize so the
-    device work is inside it; accumulates into timings[name]."""
-
-    def __init__(self, timings: dict, name: str, device: torch.device):
-        self.timings, self.name, self.device = timings, name, device
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timings[self.name] = (self.timings.get(self.name, 0.0)
-                                   + time.perf_counter() - self.t0)
 
 
 class UncondEditPipeline(EngineExec):

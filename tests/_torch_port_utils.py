@@ -59,3 +59,65 @@ def tiny_pair(perturb=lambda p: p + 0.02):
     tm.load_state_dict(adm_params_from_flax(flat, cfg))
     tm.requires_grad_(False).eval()
     return jm, params, tm
+
+
+def flat_params(params) -> dict:
+    return {k: np.asarray(v) for k, v in
+            flax.traverse_util.flatten_dict(params, sep="/").items()}
+
+
+def _lecun_params(module, seed, *example):
+    """Flax parameters of `module` in the shapes jax.eval_shape gives (no
+    compiled init): kernels normal with variance 1 / fan_in, norm scales 1,
+    biases 0, drawn by numpy from `seed`."""
+    rng = np.random.default_rng(seed)
+    shapes = flax.traverse_util.flatten_dict(
+        jax.eval_shape(module.init, jax.random.key(0), *example))
+    out = {}
+    for path, sd in sorted(shapes.items()):
+        if path[-1] == "kernel":
+            a = rng.normal(size=sd.shape) / np.sqrt(np.prod(sd.shape[:-1]))
+        else:
+            a = np.full(sd.shape, 1.0 if path[-1] == "scale" else 0.0)
+        out[path] = jnp.asarray(a, jnp.float32)
+    return flax.traverse_util.unflatten_dict(out)
+
+
+def sd_tiny_pairs():
+    """The tiny SD U-Net (sd_preset("tiny")) and a tiny VAE (16 px, channels
+    (32, 64), one resnet a level) in both packages with the same weights:
+    lecun-normal draws in the Flax shapes (U-Net seed 0, decoder 1, encoder
+    2), + 0.01 each (as tiny_pair adds a constant), carried by the port's
+    Flax carry. Returns a dict with the JAX modules and params
+    ("junet", "pu", "jdec", "pd", "jenc", "pe") and the torch modules
+    ("unet", "dec", "enc")."""
+    from loco_edit_tpu.models.sd import SDUNet as JUNet
+    from loco_edit_tpu.models.sd import VAEConfig as JVAEConfig
+    from loco_edit_tpu.models.sd import VAEDecoder as JDec
+    from loco_edit_tpu.models.sd import VAEEncoder as JEnc
+    from loco_edit_tpu.models.sd import sd_preset as jsd_preset
+    from loco_edit_tpu_torch.models.sd import (SDUNet, VAEConfig, VAEDecoder,
+                                               VAEEncoder, sd_preset)
+    from loco_edit_tpu_torch.models.sd.convert import (sd_params_from_flax,
+                                                       vae_params_from_flax)
+
+    vae_kw = dict(sample_size=16, block_out_channels=(32, 64), layers_per_block=1)
+    junet, jdec, jenc = JUNet(jsd_preset("tiny")), JDec(JVAEConfig(**vae_kw)), \
+        JEnc(JVAEConfig(**vae_kw))
+    z = jnp.zeros((1, 8, 8, 4))
+    pu = _lecun_params(junet, 0, z, 500.0,
+                       jnp.zeros((1, 7, junet.cfg.cross_attention_dim)))
+    pd = _lecun_params(jdec, 1, z)
+    pe = _lecun_params(jenc, 2, jnp.zeros((1, 16, 16, 3)))
+    pu, pd, pe = (jax.tree.map(lambda p: p + 0.01, t) for t in (pu, pd, pe))
+
+    cfg, vcfg = sd_preset("tiny"), VAEConfig(**vae_kw)
+    unet, dec, enc = SDUNet(cfg), VAEDecoder(vcfg), VAEEncoder(vcfg)
+    unet.load_state_dict(sd_params_from_flax(flat_params(pu), cfg))
+    se, sdd = vae_params_from_flax(flat_params(pe), flat_params(pd), vcfg)
+    enc.load_state_dict(se)
+    dec.load_state_dict(sdd)
+    for m in (unet, dec, enc):
+        m.requires_grad_(False).eval()
+    return dict(junet=junet, pu=pu, jdec=jdec, pd=pd, jenc=jenc, pe=pe,
+                unet=unet, dec=dec, enc=enc)

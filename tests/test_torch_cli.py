@@ -117,7 +117,9 @@ TINY_CLI = ["--model_name", "TinyTest", "--for_steps", "6", "--inv_steps", "6",
     ["--mesh_probe", "2"], ["--mesh_data", "2"], ["--mesh_sp", "2"],
     ["--trace_dir", "trace"], ["--verify_load", "ddpm"],
     ["--sampling_mode", "true"],
-    ["--model_name", "stable-diffusion-v1-5"], ["--model_name", "LCM_Dreamshaper"],
+    ["--model_name", "stable-diffusion-v1-5", "--performance_boosting_t", "0",
+     "--use_mask", "true", "--run_edit_null_space_projection_zt", "true"],
+    ["--model_name", "LCM_Dreamshaper"],
     ["--model_name", "DeepFloyd-IF"],
     ["--dataset_name", "Random", "--use_mask", "true",
      "--run_edit_null_space_projection", "true"],

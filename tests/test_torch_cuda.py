@@ -14,6 +14,9 @@ from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_cuda,
                                                group_norm_plain)
 from _torch_ddpm_shapes import DDPM_ATTN_SHAPES, DDPM_GN_EPS, DDPM_GN_SHAPES
 from _torch_p2_shapes import P2_GN_SHAPES
+from _torch_sd_shapes import (SD_CONTEXT, SD_DEC_GN_SHAPES, SD_ENC_GN_SHAPES,
+                              SD_UNET_ATTN_SHAPES, SD_UNET_GN_SHAPES,
+                              SD_VAE_ATTN_SHAPES)
 
 pytestmark = pytest.mark.cuda
 
@@ -245,3 +248,120 @@ def test_celeba_hq_hf_bf16_forward_launches_71_gn_and_6_attention():
     assert torch.isfinite(eps).all()
     assert group_norm_cuda.launches - gn0 == sum(DDPM_GN_SHAPES.values()) == 71
     assert flash_attention_cuda.launches - at0 == sum(DDPM_ATTN_SHAPES.values()) == 6
+
+
+# -- the Stable Diffusion 2.1-base shapes ---------------------------------------
+
+def bf16_ulps(ref: torch.Tensor, n: int = 2) -> float:
+    """n bf16 ulps of the largest |ref| (an ulp is at most 2^-7 of a value)."""
+    return n * 2 ** -7 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chw", [(320, 64, 64), (640, 32, 32), (960, 32, 32),
+                                 (1920, 16, 16), (2560, 8, 8), (2560, 16, 16)])
+def test_groupnorm_kernel_at_sd_widths(chw, dtype, eps, batch):
+    """The SD U-Net's channel counts, the skip concatenations' 1920 and 2560
+    included (f32 there takes two 16-byte vectors a thread), at both of its
+    eps, with small-variance inputs where eps shows."""
+    x, s, bias = _gn_inputs(_card(), (batch, *chw), dtype)
+    x = (x * 1e-3).to(dtype)
+    got = group_norm_cuda(x, s, bias, eps=eps)
+    torch.cuda.synchronize()
+    ref = group_norm_plain(x, s, bias, eps=eps)
+    assert (got.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+    assert torch.equal(got, group_norm_cuda(x, s, bias, eps=eps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted({k[:3] for k in (*SD_UNET_GN_SHAPES,
+                                                            *SD_DEC_GN_SHAPES,
+                                                            *SD_ENC_GN_SHAPES)}))
+def test_groupnorm_kernel_at_every_sd_shape(shape, dtype):
+    """Batch 2 (the CFG batch) at each (C, H, W) of one SD U-Net forward,
+    VAE decode and VAE encode."""
+    x, s, bias = _gn_inputs(_card(), (2, *shape), dtype)
+    got = group_norm_cuda(x, s, bias, eps=1e-6)
+    torch.cuda.synchronize()
+    ref = group_norm_plain(x, s, bias, eps=1e-6)
+    assert (got.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 512])
+@pytest.mark.parametrize("nq,nkv", [(4096, 77), (1024, 77), (64, 77), (256, 7),
+                                    (7, 256), (77, 4096), (100, 4096), (65, 1)])
+def test_attention_cross_lengths(nq, nkv, d, dtype):
+    """N_q != N_kv both ways on both routes, N_kv of 7, 77 and 4096 (ragged
+    last key tiles of 7, 13 and none), against the plain version (f32 5e-5;
+    bf16 two ulps of the largest output, at least 3e-2: few keys average
+    little, so outputs reach |y| > 4); one launch per call."""
+    g = _card()
+    heads = 2 if d == 64 else 1
+    q = torch.randn(2, heads, nq, d, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(2, heads, nkv, d, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1 and got.shape == q.shape
+    ref = attention_plain(q, k, v).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= max(ATOL[dtype] / 2, bf16_ulps(ref) if dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_cross_on_head_split_views(dtype):
+    """The SD cross-attention's views: q head-split from (B, 4096, 320) and
+    k, v from one packed (B, 77, 640) projection, taken without a copy."""
+    g = _card()
+    x = torch.randn(2, 4096, 320, device="cuda", generator=g).to(dtype)
+    kv = torch.randn(2, 77, 640, device="cuda", generator=g).to(dtype)
+    q = x.reshape(2, 4096, 5, 64).transpose(1, 2)
+    k, v = (t.reshape(2, 77, 5, 64).transpose(1, 2) for t in kv.split(320, -1))
+    copies = AttentionFn.layout_copies
+    got = AttentionFn.apply(q, k, v)
+    torch.cuda.synchronize()
+    assert AttentionFn.layout_copies == copies
+    ref = attention_plain(q, k, v).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= max(ATOL[dtype] / 2, bf16_ulps(ref) if dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("which", ["unet", "decoder", "encoder"])
+def test_sd_bf16_forward_launch_counts(which):
+    """One full-width SD 2.1-base forward in bf16 on the card: finite output
+    of the expected shape, and the launch counters read exactly the calls
+    of tests/_torch_sd_shapes.py (61 GN + 32 attention per U-Net forward,
+    30 + 1 per decode, 22 + 1 per encode)."""
+    _card()
+    from loco_edit_tpu_torch.models.sd import (SDUNet, VAEConfig, VAEDecoder,
+                                               VAEEncoder, sd_preset)
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    with torch.device("cuda"):
+        if which == "unet":
+            m = SDUNet(sd_preset("sd21-base", dtype=torch.bfloat16))
+            args = (torch.randn(2, 64, 64, 4, device="cuda", generator=gen), 500.0,
+                    0.2 * torch.randn(2, *SD_CONTEXT, device="cuda", generator=gen))
+            shapes, want = (SD_UNET_GN_SHAPES, SD_UNET_ATTN_SHAPES), (2, 64, 64, 4)
+        elif which == "decoder":
+            m = VAEDecoder(VAEConfig(dtype=torch.bfloat16))
+            args = (torch.randn(1, 64, 64, 4, device="cuda", generator=gen),)
+            shapes, want = (SD_DEC_GN_SHAPES, SD_VAE_ATTN_SHAPES), (1, 512, 512, 3)
+        else:
+            m = VAEEncoder(VAEConfig(dtype=torch.bfloat16))
+            args = (torch.rand(1, 512, 512, 3, device="cuda", generator=gen) * 2 - 1,)
+            shapes, want = (SD_ENC_GN_SHAPES, SD_VAE_ATTN_SHAPES), (1, 64, 64, 4)
+    m.init_random_(gen).requires_grad_(False)
+    gn0, at0 = group_norm_cuda.launches, flash_attention_cuda.launches
+    with torch.no_grad():
+        out = m(*args)
+    out = out[0] if isinstance(out, tuple) else out
+    torch.cuda.synchronize()
+    assert out.shape == want and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert group_norm_cuda.launches - gn0 == sum(shapes[0].values())
+    assert flash_attention_cuda.launches - at0 == sum(shapes[1].values())

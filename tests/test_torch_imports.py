@@ -133,3 +133,28 @@ def test_tiny_cpu_flagship_runs(tmp_path):
     np.testing.assert_allclose(np.linalg.norm(out["vT"], axis=1), 1.0, rtol=1e-5)
     assert out["strips"][0].shape == (5, 32, 32, 3)   # frames 0, 1, 2 each side
     assert np.isfinite(out["strips"][0]).all()
+
+
+def test_sd_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The SD bundle, the SD pipeline and the SD CLI run on the card unless
+    asked for the CPU; without one they raise before building anything."""
+    import argparse
+
+    from loco_edit_tpu_torch.cli.main import main
+    from loco_edit_tpu_torch.core.rng import RngStream
+    from loco_edit_tpu_torch.models.t2i_registry import load_sd_bundle
+    from loco_edit_tpu_torch.pipelines.sd import SDEditConfig, SDEditPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = argparse.Namespace(dtype="fp32", checkpoint_path="", vae_path="",
+                              text_encoder_path="", device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_sd_bundle(args)
+    f = lambda *a: None   # noqa: E731
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SDEditPipeline(f, f, f, f, SDEditConfig(result_folder=str(tmp_path)),
+                       RngStream.from_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--model_name", "stabilityai/stable-diffusion-2-1-base",
+              "--performance_boosting_t", "0", "--use_mask", "false",
+              "--run_ddim_forward", "true", "--result_folder", str(tmp_path)])

@@ -20,6 +20,8 @@ from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_plain,
                                                launch_geometry)
 from loco_edit_tpu_torch.ops.norms import group_norm_f32
 from _torch_p2_shapes import P2_ATTN_SHAPES, P2_GN_SHAPES, p2_call_shapes
+from _torch_sd_shapes import (SD_DEC_GN_SHAPES, SD_ENC_GN_SHAPES, SD_UNET_ATTN_SHAPES,
+                              SD_UNET_GN_SHAPES)
 from _torch_port_utils import nchw, nhwc
 
 torch.set_num_threads(2)
@@ -237,13 +239,15 @@ def _tensor_core_attention_model(q, k, v, block=64):
     and k * d^-1/4 rounded to bf16, f32 logits and online softmax over
     `block`-key tiles, unnormalized P rounded to bf16 before P V with f32
     accumulation, one f32 division by the row sum, output rounded to bf16.
-    v may be a column slice of the values (the wide-head route)."""
+    k and v may hold another number of keys than q has queries (the last
+    key tile is then ragged: its missing keys add nothing); v may be a
+    column slice of the values (the wide-head route)."""
     scale = _scale(q.shape[-1])
     qs, ks = (q * scale).float(), (k * scale).float()
     m = torch.full(q.shape[:-1] + (1,), -math.inf)
     l = torch.zeros_like(m)
     acc = torch.zeros(q.shape[:-1] + v.shape[-1:], dtype=torch.float32)
-    for j0 in range(0, q.shape[-2], block):
+    for j0 in range(0, k.shape[-2], block):
         s = qs @ ks[..., j0:j0 + block, :].transpose(-1, -2)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -353,7 +357,7 @@ def _two_launch_model(x, scale, bias, geo, groups=32, eps=1e-5):
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 7, 64), (1, 9, 9, 384), (3, 16, 16, 96),
-                                   (45, 8, 8, 1024)])
+                                   (45, 8, 8, 1024), (2, 8, 8, 2560), (1, 16, 16, 1920)])
 def test_groupnorm_two_launch_model_matches_plain(shape):
     """The kernel's chunked, fixed-order reduction over its launch geometry
     gives group_norm_plain's result (f32, atol 1e-5)."""
@@ -363,3 +367,58 @@ def test_groupnorm_two_launch_model_matches_plain(shape):
     got = _two_launch_model(x.reshape(bsz, h * w, c), s, b, geo)
     ref = nhwc(group_norm_plain(nchw(x), torch.from_numpy(s), torch.from_numpy(b)))
     np.testing.assert_allclose(got.reshape(shape), ref, atol=1e-5)
+
+
+# -- the Stable Diffusion shapes: cross-attention and wide GroupNorm rows -------
+
+@pytest.mark.parametrize("sigma", [1.0, 2.0])
+@pytest.mark.parametrize("heads,nq,nkv", sorted({(h, nq, nkv) for h, nq, nkv, _ in
+                                                 SD_UNET_ATTN_SHAPES if nkv == 77})
+                         + [(1, 65, 7), (2, 7, 130)])
+def test_cross_attention_tail_tile_rounding_within_bf16_tolerance(heads, nq, nkv, sigma):
+    """The bf16 route at the SD U-Net's cross-attention (N_kv = 77 = 64 +
+    13: one whole and one ragged key tile) and ragged small cases: the
+    model of its rounding stays within the tolerance the card holds the
+    kernel to at these shapes, two bf16 ulps of the largest output and
+    never under 3e-2 (few keys average little, so outputs reach |y| > 4,
+    where one ulp is 2^-5); at sigma 1, keys past N_kv counted as zero
+    logits instead of masked to -inf would be outside it."""
+    g = np.random.default_rng(24)
+    q = torch.from_numpy(g.normal(size=(2, heads, nq, 64)).astype(np.float32)).bfloat16()
+    k, v = (torch.from_numpy(g.normal(size=(2, heads, nkv, 64)).astype(np.float32))
+            .bfloat16() for _ in range(2))
+    q, k = (q * sigma).bfloat16(), (k * sigma).bfloat16()
+    ref = attention_plain(q, k, v)
+    got = _tensor_core_attention_model(q, k, v)
+    assert got.shape == q.shape
+    tol = max(3e-2, 2 ** -6 * ref.float().abs().max().item())
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    pad = -nkv % 64
+    if pad and sigma == 1.0:       # at sigma 2 the softmax is too peaked to see them
+        kp, vp = (torch.cat([t, torch.zeros(*t.shape[:2], pad, 64, dtype=t.dtype)], 2)
+                  for t in (k, v))
+        unmasked = _tensor_core_attention_model(q, kp, vp)
+        assert (unmasked.float() - ref.float()).abs().max().item() > tol
+
+
+@pytest.mark.parametrize("chw", sorted({k[:3] for k in (*SD_UNET_GN_SHAPES, *SD_DEC_GN_SHAPES,
+                                                          *SD_ENC_GN_SHAPES)}))
+def test_groupnorm_launch_geometry_at_sd_shapes(chw):
+    """csrc/groupnorm.cu's geometry at each SD (C, H, W), batch 1 and 2
+    (CFG), bf16 and f32: 16-byte vectors across C, one vector a thread up
+    to 512 vectors a pixel and two above (f32 at C = 2560: 320 threads),
+    every channel covered once, chunks covering every pixel once, shared
+    memory under 48 KB."""
+    c, h, w = chw
+    hw = h * w
+    for b in (1, 2):
+        for itemsize in (2, 4):
+            geo = launch_geometry(b, c, hw, itemsize)
+            assert geo.vec * itemsize == 16
+            assert geo.nvec == (1 if c // geo.vec <= 512 else 2)
+            assert geo.threads_x * geo.vec * geo.nvec == c and geo.threads_x <= 512
+            assert geo.chunk % (geo.rows * 4) == 0
+            assert (geo.chunks - 1) * geo.chunk < hw <= geo.chunks * geo.chunk
+            assert 2 * max(geo.rows * c, 32 * 8) * 4 <= 48 * 1024
+    assert launch_geometry(1, 2560, 64, 4).nvec == 2
+    assert launch_geometry(1, 1920, 256, 4).nvec == 1

@@ -13,7 +13,7 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("n", [10, 100])
-@pytest.mark.parametrize("noise_schedule", ["linear", "cosine"])
+@pytest.mark.parametrize("noise_schedule", ["linear", "cosine", "scaled_linear"])
 def test_grids_bit_equal(n, noise_schedule):
     j = jsched.LinspaceDDIM(noise_schedule=noise_schedule)
     t = tsched.LinspaceDDIM(noise_schedule=noise_schedule)
