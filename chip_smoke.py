@@ -20,7 +20,9 @@ Phases (any failure raises; nothing is caught and skipped):
      beside the bound and the kernel's share of it, each launch after the
      last from the host (`ms`) and, for the kernel and the library call,
      replayed from a CUDA graph (`device_ms`: the device alone); GroupNorm
-     launched twice on one input must give the same bits.
+     launched twice on one input must give the same bits; for attention,
+     the plain version with the last key tile skipped, or the logits scaled
+     by ATTN_MUTANT_SCALE, must miss the tolerance (a check of the check).
   3. The full-width FFHQ_P2 and CelebA_HQ_HF forwards in f32 and one J.v of
      the PMP each: the card (kernels) against the CPU (plain versions).
   4. The P2 flagship edit at full width, bf16 network, f32 state: invert,
@@ -42,7 +44,9 @@ Phases (any failure raises; nothing is caught and skipped):
      at every call shape of one U-Net forward at batch 2 (CFG; cross-
      attention at N_kv = 77, f32 GroupNorm at C = 2560), one VAE decode and
      one VAE encode at 512 px; phase 3's at the U-Net eps (batch 1, a seeded
-     77 x 1024 context) and decode(PMP(z)) J.v at 512 px.
+     77 x 1024 context) and decode(PMP(z)) J.v at 512 px; then the bf16
+     U-Net and decoder on the same weights: eps and decode(PMP(z)) against
+     the f32 CPU within a relative L2 error of BF16_FWD_RTOL.
   8. The SD edit through the CLI, bf16, full width and depth, over a box
      mask.npz it writes: rank 5+5 dual basis through the 512 px decoder,
      null-space projection, 5 PCs x 9-frame walks, chunked denoise and
@@ -61,6 +65,7 @@ the kernels' JSON line and the result line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -76,16 +81,24 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
 # kernel vs plain version: f32 differs by summation order; bf16 outputs are
-# one bf16 rounding of nearby f32 values (two ulps at |y| <= 8 for GN, at
-# |y| <= 4 for attention)
+# one bf16 rounding of nearby f32 values (two ulps at |y| <= 8 for GN)
 TOL = {("groupnorm", "float32"): 1e-4, ("groupnorm", "bfloat16"): 6e-2,
-       ("flash_attention", "float32"): 5e-5, ("flash_attention", "bfloat16"): 3e-2}
-# SD rows, bf16 attention: two bf16 ulps of the largest output, never under
-# the 3e-2 above (77 keys average little: outputs reach |y| > 4, where one
-# ulp is 2^-5)
-BF16_ULPS = 2 * 2 ** -7
+       ("flash_attention", "float32"): 5e-5}
+# bf16 attention: two bf16 ulps of the largest |output| (2^-6 of it; the
+# kernel rounds P before normalizing, the plain version after: within one
+# ulp in the CPU model of tests/test_torch_ops.py), never above the 3e-2 of
+# the first checks. Outputs shrink with the keys averaged (max |y| ~ 0.15 at
+# 4096 keys), so no absolute floor.
+ATTN_BF16_ULPS, ATTN_BF16_CAP = 2 ** -6, 3e-2
+# a kernel that skipped the last key tile (64 keys up to D = 128, 32 above)
+# or scaled the logits by this factor must miss the tolerance
+ATTN_MUTANT_SCALE = 1.03
 # full-width f32 forward and J.v, card vs CPU, relative to the largest value
 FWD_RTOL = 1e-3
+# full-width bf16 SD eps and decode(PMP(z)) on the card against the f32 CPU:
+# relative L2 error (bf16 keeps 8 significant bits; ~1e-2 through the tiny
+# networks on the CPU, tests/test_torch_sd_models.py)
+BF16_FWD_RTOL = 5e-2
 
 
 def log(*a):
@@ -256,6 +269,23 @@ def gn_row(tag, dtype, b, shape, per_forward, g):
         bound_ms=bms, bound_by=by)
 
 
+def attn_mutant_errs(q, k, v, tile):
+    """How far two broken kernels would land from the plain version, in f32
+    on the same inputs: one that skipped the last key tile (where there are
+    two or more) and one that scaled the logits by ATTN_MUTANT_SCALE."""
+    from loco_edit_tpu_torch.ops.flash_attention import attention_plain
+
+    q, k, v = q.float(), k.float(), v.float()
+    ref = attention_plain(q, k, v)
+    errs = {"scale": (attention_plain(q * ATTN_MUTANT_SCALE, k, v) - ref).abs().max().item()}
+    n_kv = k.shape[2]
+    if n_kv > tile:
+        keep = n_kv - ((n_kv - 1) % tile + 1)
+        errs["drop_tile"] = (attention_plain(q, k[:, :, :keep], v[:, :, :keep])
+                             - ref).abs().max().item()
+    return errs
+
+
 def attn_row(tag, dtype, b, shape, per_forward, g):
     from loco_edit_tpu_torch.ops.flash_attention import (attention_plain,
                                                          flash_attention_cuda, route)
@@ -267,14 +297,15 @@ def attn_row(tag, dtype, b, shape, per_forward, g):
             for _ in range(2))
     ref = attention_plain(q, k, v).float()
     err = (flash_attention_cuda(q, k, v).float() - ref).abs().max().item()
-    tol = TOL[("flash_attention", dt)]
-    if tag.startswith("SD") and dtype == torch.bfloat16:
-        tol = max(tol, BF16_ULPS * ref.abs().max().item())
+    tol = (min(ATTN_BF16_CAP, ATTN_BF16_ULPS * ref.abs().max().item())
+           if dtype == torch.bfloat16 else TOL[("flash_attention", dt)])
+    mutants = attn_mutant_errs(q, k, v, 64 if d <= 128 else 32)
     bms, by = bound(2 * b * heads * (nq + nkv) * d * q.element_size(),
                     4 * b * heads * nq * nkv * d, dt)
     return dict(
         model=tag, kernel="flash_attention", dtype=dt, shape=[b, heads, nq, nkv, d],
         route=route(dtype, d), per_forward=per_forward, max_abs_err=err, tol=tol,
+        mutant_errs=mutants,
         ms=cuda_ms(lambda: flash_attention_cuda(q, k, v)),
         plain_ms=cuda_ms(lambda: attention_plain(q, k, v)),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -306,13 +337,18 @@ def kernel_rows(tag, gn_calls, attn_calls):
         r["bound_share"] = r["bound_ms"] / r["ms"]
         log(f"[2 kernels] {tag:9s} {r['kernel']:15s} {r['dtype']:8s} "
             f"{str(r['shape']):25s} {r['route']:25s} x{r['per_forward']}/fwd err "
-            f"{r['max_abs_err']:.2e} (tol {r['tol']:.1e}) kernel {r['ms']:.4f} ms plain "
+            f"{r['max_abs_err']:.2e} (tol {r['tol']:.2e}"
+            + "".join(f", {k} mutant {e:.2e}" for k, e in r.get("mutant_errs", {}).items())
+            + f") kernel {r['ms']:.4f} ms plain "
             f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}) share {r['bound_share']:.3f}; device only: kernel "
             f"{r['device_ms']:.4f} library {r['library_device_ms']:.4f}")
     bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    blind = [r for r in rows if not all(e > r["tol"] for e in r.get("mutant_errs", {}).values())]
+    if blind:
+        fail(f"attention tolerance would pass a broken kernel: {blind}")
     unstable = [r["shape"] for r in rows if r.get("same_bits") is False]
     if unstable:
         fail(f"GroupNorm gave other bits on a second launch at {unstable}")
@@ -686,8 +722,8 @@ def phase_sd_forward_vs_cpu(models):
             e = unet(zz, t, cd)
             return dec((zz - e * np.sqrt(1.0 - ab)) / np.sqrt(ab) / sf)
 
-        jv = torch.func.jvp(f, (zd,), (v.to(dev),))[1]
-        out[dev] = (eps.cpu(), jv.cpu(), time.perf_counter() - t0)
+        image, jv = torch.func.jvp(f, (zd,), (v.to(dev),))
+        out[dev] = (eps.cpu(), jv.cpu(), time.perf_counter() - t0, image.cpu())
     res = {}
     for i, name, shape in ((0, "eps", (1, 64, 64, 4)), (1, "jv", (1, 512, 512, 3))):
         a, b = out["cuda"][i], out["cpu"][i]
@@ -702,6 +738,34 @@ def phase_sd_forward_vs_cpu(models):
         f"|eps| {res['eps'][1]:.3f}), decode(PMP) J.v rel err {res['jv'][0]:.2e} (max "
         f"|Jv| {res['jv'][1]:.3f}), tol {FWD_RTOL:.0e}; forward+jvp card "
         f"{out['cuda'][2]:.2f} s, CPU {out['cpu'][2]:.2f} s")
+
+    # the bf16 networks (the edit's dtype) on the same weights, against the
+    # f32 CPU: eps and the decoded image of PMP(z)
+    half = {}
+    for name in ("unet", "decoder"):
+        m = models[name]
+        with torch.device("cuda"):
+            half[name] = type(m)(dataclasses.replace(m.cfg, dtype=torch.bfloat16))
+        half[name].load_state_dict(m.state_dict())
+        half[name].requires_grad_(False).eval()
+    zd, cd = z.cuda(), ctx.cuda()
+    with torch.no_grad():
+        eps16 = half["unet"](zd, t, cd)
+        image16 = half["decoder"]((zd - eps16 * np.sqrt(1.0 - ab)) / np.sqrt(ab) / sf)
+    errs = {}
+    for name, a, b in (("eps", eps16, out["cpu"][0]), ("decode(PMP)", image16, out["cpu"][3])):
+        a = a.float().cpu()
+        if not (torch.isfinite(a).all() and a.shape == b.shape):
+            fail(f"full-width bf16 SD {name} on the card is not finite of shape {b.shape}")
+        errs[name] = (((a - b).norm() / b.norm()).item(),
+                      ((a - b).abs().max() / b.abs().max()).item())
+    log("[3 forward] SD 2.1-base bf16 on the card vs f32 CPU: " + "; ".join(
+        f"{k} rel L2 err {l2:.2e}, rel max err {mx:.2e}" for k, (l2, mx) in errs.items())
+        + f"; tol (rel L2) {BF16_FWD_RTOL:.0e}")
+    if not all(l2 <= BF16_FWD_RTOL for l2, _ in errs.values()):
+        fail(f"full-width bf16 SD: card vs f32 CPU relative L2 error above "
+             f"{BF16_FWD_RTOL:.0e}: {errs}")
+    del half
 
 
 def check_sd_launches(what, launches, fwd, predicted_fwd):

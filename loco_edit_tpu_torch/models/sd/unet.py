@@ -126,27 +126,29 @@ class GEGLU(nn.Module):
         return h * F.gelu(gate)             # the exact erf form, as diffusers'
 
 
-def _layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+class LayerNormF32(nn.LayerNorm):
     """LayerNorm computed and returned in f32 (Flax LayerNorm, dtype f32)."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
 
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, ch: int, heads: int, cfg: SDUNetConfig):
         super().__init__()
         dt = cfg.dtype
-        self.norm1 = nn.LayerNorm(ch, eps=1e-5)
+        self.norm1 = LayerNormF32(ch, eps=1e-5)
         self.attn1 = CrossAttention(ch, ch, heads, dt)
-        self.norm2 = nn.LayerNorm(ch, eps=1e-5)
+        self.norm2 = LayerNormF32(ch, eps=1e-5)
         self.attn2 = CrossAttention(ch, cfg.cross_attention_dim, heads, dt)
-        self.norm3 = nn.LayerNorm(ch, eps=1e-5)
+        self.norm3 = LayerNormF32(ch, eps=1e-5)
         self.ff_net_0 = GEGLU(ch, 4 * ch, dt)
         self.ff_net_2 = nn.Linear(4 * ch, ch, dtype=dt)
 
     def forward(self, x, context):
-        x = x + self.attn1(_layer_norm_f32(self.norm1, x))
-        x = x + self.attn2(_layer_norm_f32(self.norm2, x), context)
-        h = self.ff_net_0(_layer_norm_f32(self.norm3, x))
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        h = self.ff_net_0(self.norm3(x))
         return x + self.ff_net_2(h)
 
 

@@ -35,13 +35,13 @@ from loco_edit_tpu_torch.editing import (
     normalize_rows,
     save_directions,
     subspace_iteration,
-    x_space_guidance_strip,
 )
 from loco_edit_tpu_torch.editing.pullback import (eps_pullback_fn,
                                                   padded_probe_count,
                                                   pmp_pullback_fn)
 from loco_edit_tpu_torch.models.base import Denoiser
-from loco_edit_tpu_torch.pipelines.common import EngineExec, _host, _Phase
+from loco_edit_tpu_torch.pipelines.common import (EngineExec, _host, _Phase,
+                                                  concat_pc_strips, split_pc_strips)
 from loco_edit_tpu_torch.utils.io import save_image_grid, to_uint8_pixels_device
 
 
@@ -243,26 +243,20 @@ class UncondEditPipeline(EngineExec):
         components' strips concatenate into one frame batch."""
         cfg = self.cfg
         n_pc = min(cfg.vis_num_pc, vT.shape[0])
-        per_pc = [x_space_guidance_strip(
-            xt, vT[pc], scale=cfg.x_space_guidance_scale,
+        per_pc, frames = concat_pc_strips(
+            xt, vT, n_pc, scale=cfg.x_space_guidance_scale,
             edit_step=cfg.x_space_guidance_edit_step,
             num_steps=cfg.x_space_guidance_num_step, vis_num=cfg.vis_num)
-            for pc in range(n_pc)]
-        strips = {}
-        if n_pc:
-            edited = self.generate_chunked(torch.cat(per_pc, dim=0),
-                                           self.edit_t_idx, None, boost=True)
-            if cfg.pixel_output:
-                edited = to_uint8_pixels_device(edited)
-            edited_all = _host(edited)
-            offset = 0
-            for pc, sp in enumerate(per_pc):
-                strips[pc] = edited_all[offset:offset + sp.shape[0]]
-                offset += sp.shape[0]
-                if cfg.save_images:
-                    self._submit_io(
-                        save_image_grid, strips[pc],
-                        os.path.join(out_dir, f"edit-{basis_name}-pc{pc:03d}.png"))
+        if not per_pc:
+            return {}
+        edited = self.generate_chunked(frames, self.edit_t_idx, None, boost=True)
+        if cfg.pixel_output:
+            edited = to_uint8_pixels_device(edited)
+        strips = split_pc_strips(per_pc, edited)
+        if cfg.save_images:
+            for pc, strip in strips.items():
+                self._submit_io(save_image_grid, strip,
+                                os.path.join(out_dir, f"edit-{basis_name}-pc{pc:03d}.png"))
         return strips
 
     def run_edit_null_space_projection(

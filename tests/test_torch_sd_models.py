@@ -130,6 +130,88 @@ def test_decode_pmp_jv_and_vjp_match_jax(pairs):
     _close(tpull(torch.from_numpy(cot))[0].numpy(), vj, 2e-5)
 
 
+# the bf16 tiny networks against the f32 JAX ones, relative to the largest
+# |reference| (measured ~1e-2 for the U-Net; bf16 keeps 8 significant bits)
+BF16_RTOL = 3e-2
+
+
+def _dtype_trace(jmod, params, tmod, args):
+    """Run the JAX module with every submodule's output captured and the
+    port's with a forward hook on every submodule: {path: (dtypes of the
+    output's leaves)} of each, paths joined with dots, and both outputs."""
+    jout, inter = jmod.apply(params, *(jnp.asarray(a) if isinstance(a, np.ndarray) else a
+                                       for a in args),
+                             capture_intermediates=True, mutable=["intermediates"])
+    jtrace = {}
+
+    def walk(tree, path):
+        for key, val in tree.items():
+            if key == "__call__":
+                jtrace[path] = tuple(str(x.dtype) for x in jax.tree.leaves(val[0]))
+            else:
+                walk(val, f"{path}.{key}" if path else key)
+
+    walk(inter["intermediates"], "")
+
+    def leaves(o):
+        return ([o] if isinstance(o, torch.Tensor)
+                else [x for item in o for x in leaves(item)])
+
+    ttrace, hooks = {}, []
+    for name, m in tmod.named_modules():
+        hooks.append(m.register_forward_hook(lambda mod, a, out, name=name: ttrace.__setitem__(
+            name, tuple(str(x.dtype).removeprefix("torch.") for x in leaves(out)))))
+    with torch.no_grad():
+        tout = tmod(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args))
+    for h in hooks:
+        h.remove()
+    return jtrace, ttrace, jout, tout
+
+
+@pytest.mark.parametrize("which", ["unet", "decoder", "encoder"])
+def test_bf16_dtype_flow_matches_jax(pairs, which):
+    """The bf16 networks cast where the JAX ones do: every submodule's
+    output (the f32 LayerNorm and GroupNorm, the bf16 Linear and conv
+    layers, the cast time embedding, the f32 conv_out) has the JAX module's
+    dtype, submodule by submodule and name by name; the outputs lie within
+    BF16_RTOL of the f32 JAX network's. A cast flipped at any one point
+    changes a dtype here, where its rounding alone would hide in bf16."""
+    from loco_edit_tpu.models.sd import SDUNet as JUNet
+    from loco_edit_tpu.models.sd import VAEDecoder as JDec
+    from loco_edit_tpu.models.sd import VAEEncoder as JEnc
+
+    rng = np.random.default_rng(5)
+    z = rng.normal(size=(2, 8, 8, 4)).astype(np.float32)
+    if which == "unet":
+        ctx = (rng.normal(size=(2, 7, 32)) * 0.5).astype(np.float32)
+        jmod, tmod = JUNet(jsd_preset("tiny", dtype=jnp.bfloat16)), SDUNet(
+            sd_preset("tiny", dtype=torch.bfloat16))
+        args, params, ref = (z, 500.0, ctx), pairs["pu"], pairs["unet"]
+        jref = pairs["junet"]
+    else:
+        jcls, tcls, tag = ((JDec, VAEDecoder, "d") if which == "decoder"
+                           else (JEnc, VAEEncoder, "e"))
+        jmod = jcls(JVAEConfig(**VAE_KW, dtype=jnp.bfloat16))
+        tmod = tcls(VAEConfig(**VAE_KW, dtype=torch.bfloat16))
+        args = ((z,) if which == "decoder"
+                else (rng.uniform(-1, 1, size=(2, 16, 16, 3)).astype(np.float32),))
+        params, ref = pairs["p" + tag], pairs["dec" if tag == "d" else "enc"]
+        jref = pairs["j" + ("dec" if tag == "d" else "enc")]
+    tmod.load_state_dict(ref.state_dict())
+    tmod.eval()
+    jtrace, ttrace, jout, tout = _dtype_trace(jmod, params, tmod, args)
+    assert set(ttrace) == set(jtrace)
+    assert ttrace == jtrace
+    assert {"bfloat16", "float32"} <= {d for ds in jtrace.values() for d in ds}
+    want = jref.apply(params, *(jnp.asarray(a) if isinstance(a, np.ndarray) else a
+                                for a in args))
+    got = tout if isinstance(tout, tuple) else (tout,)
+    want = jax.tree.leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close(g.float().numpy(), np.asarray(w), BF16_RTOL)
+
+
 @pytest.mark.parametrize("prompt", ["", "a cat", "a cat with sunglasses"])
 def test_fake_prompt_encoder_bit_equal(prompt):
     got = fake_prompt_encoder(32, seq=7, device="cpu")(prompt)

@@ -3,8 +3,8 @@ and VAE with the same carried weights and the JAX package's random draws
 (zT, the VAE sample noise, the probes) fed through the port's RngStream
 interface: the unsupervised dual-basis edit with null-space projection and
 the SEGA branch of tests/test_pipeline_sd.py, and run_edit_batch against
-single runs (tests/test_torch_sd_semantic.py holds the text-supervised edit
-and the inversion)."""
+the JAX package's and against single runs (tests/test_torch_sd_semantic.py
+holds the text-supervised edit and the inversion)."""
 
 import numpy as np
 import pytest
@@ -44,23 +44,41 @@ def test_sega_branch_matches_jax(make):
     _close(t["image"], j["image"], STRIP_RTOL)
 
 
-def test_run_edit_batch_matches_single_runs(make):
-    """Two real images inverted in one batch, then a basis and strips each
-    (one mask, and an all-False row meaning none), against two single runs
-    on one pipeline from the same latents: the same z_t (within the batch
-    size's summation order), bases, strips and artifact files."""
-    _, tpipe = make(null_space_projection=False, vis_num_pc=1)
+@pytest.fixture(scope="module")
+def batch(make):
+    """Two real images inverted and generated to edit_t in one batch, then a
+    basis and strips each (one box mask, and an all-False row meaning
+    none), through both packages' run_edit_batch."""
+    jpipe, tpipe = make(null_space_projection=False, vis_num_pc=1)
     rng = np.random.default_rng(1)
     x0s = rng.uniform(-1, 1, size=(2, 16, 16, 3)).astype(np.float32)
     masks = np.concatenate([_box_mask(), np.zeros((1, 16, 16, 3), bool)])
-    batch = tpipe.run_edit_batch(for_prompt="a dog", x0s=x0s, masks=masks,
-                                 sample_names=["a", "b"])
+    kw = dict(for_prompt="a dog", x0s=x0s, masks=masks, sample_names=["a", "b"])
+    return jpipe, jpipe.run_edit_batch(**kw), tpipe, tpipe.run_edit_batch(**kw), kw
+
+
+def test_run_edit_batch_matches_single_runs(make, batch):
+    """The port's batch against two single runs on one pipeline from the
+    same latents: the same z_t (within the batch size's summation order),
+    bases, strips and artifact files."""
+    _, _, tpipe, got, kw = batch
     assert {"invert", "generate", "basis", "strips", "io"} <= set(tpipe.timings)
-    zTs = tpipe.invert(x0s)
+    zTs = tpipe.invert(kw["x0s"])
+    masks = kw["masks"]
     _, single = make(null_space_projection=False, vis_num_pc=1)
     for i, name in enumerate(["a", "b"]):
         ref = single.run_edit_null_space_projection_zt(
             "a dog", zT=zTs[i:i + 1], mask=masks[i:i + 1] if i == 0 else None,
             sample_name=name)
-        _compare_edit(ref, batch[i])
+        _compare_edit(ref, got[i])
     assert _files(tpipe.cfg.result_folder) == _files(single.cfg.result_folder)
+
+
+def test_run_edit_batch_matches_jax(batch):
+    """Both packages' run_edit_batch on the same images and masks: the same
+    z_t, bases, strips and artifact files per sample."""
+    jpipe, j, tpipe, t, _ = batch
+    assert len(t) == len(j) == 2
+    for ji, ti in zip(j, t):
+        _compare_edit(ji, ti)
+    assert _files(tpipe.cfg.result_folder) == _files(jpipe.cfg.result_folder)
