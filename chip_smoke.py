@@ -57,10 +57,33 @@ Phases (any failure raises; nothing is caught and skipped):
      launches must be 61 GN + 32 attention per U-Net forward, 30 + 1 per
      decode and 22 + 1 per encode, its forwards what its steps predict.
 
+  9. LCM Dreamshaper v7 (the SD 1.5 U-Net, 8 heads of 40, 80 and 160, with
+     the guidance embedding cond_proj; seeded random weights, the 768-wide
+     fake prompt encoder). Phase 2's checks at every call shape of one
+     U-Net forward at batch 1 (generate, the basis primal, the text
+     direction) and 3 (the strip); the f32 eps against the CPU and the bf16
+     eps against the f32 CPU. Then the LCM edit through the CLI, bf16, at
+     the reference script's settings (4 steps, edit_t_idx 2, guidance 7.5,
+     non-semantic rank 5+5 dual basis through the 512 px decoder, null-space
+     projection, x-space guidance 0.4 x 24, vis_num 1) over a box mask.npz;
+     cut, printed with the phase: a fixed 5 basis sweeps. Then
+     delta_zt_via_grad from Python. Launches: 61 GN + 32 attention per U-Net
+     forward, 30 + 1 per decode; forwards what the steps predict.
+ 10. DeepFloyd-IF: seeded diffusers-named IF-I-M and IF-II-M state_dicts
+     written to .pt files and loaded through the CLI's registry
+     (infer_if_config and the converter at full width). Phase 2's checks at
+     every IF-I-M call shape at the CFG batch 2 (added-KV attention at N_kv
+     = 77 + N_q, GN over the (77, 512) text states) and every IF-II-M one at
+     batch 10; the IF-I-M eps checks as in phase 9. Then the semantic IF
+     edit through the CLI at the reference script's settings (100 steps,
+     edit_t 0.75, (for-edit)-direct, rank 1 + null 5) with the DiffEdit
+     mask, bf16, and the IF-II-M upscale of its strip. Launches: 117 GN + 22
+     attention per IF-I-M forward, 89 + 8 per IF-II-M forward.
+
 Launch counts are set to 0 just before each main path (phases 4, 6 edit,
-6 group, 8 edit, 8 delta, 8 invert) and read just after. The last three
-lines of standard output are the card's name and power limit (nvidia-smi),
-the kernels' JSON line and the result line.
+6 group, 8 edit, 8 delta, 8 invert, 9 edit, 9 delta, 10 edit) and read just
+after. The last three lines of standard output are the card's name and
+power limit (nvidia-smi), the kernels' JSON line and the result line.
 """
 
 from __future__ import annotations
@@ -95,6 +118,10 @@ ATTN_BF16_ULPS, ATTN_BF16_CAP = 2 ** -6, 3e-2
 ATTN_MUTANT_SCALE = 1.03
 # full-width f32 forward and J.v, card vs CPU, relative to the largest value
 FWD_RTOL = 1e-3
+# parameter counts of the full-width models (jax.eval_shape on the JAX
+# presets; tests/test_torch_if_models.py holds both packages to them)
+LCM_UNET_PARAMS = 859_602_884
+IF_I_M_PARAMS, IF_II_M_PARAMS = 426_944_518, 412_539_270
 # full-width bf16 SD eps and decode(PMP(z)) on the card against the f32 CPU:
 # relative L2 error (bf16 keeps 8 significant bits; ~1e-2 through the tiny
 # networks on the CPU, tests/test_torch_sd_models.py)
@@ -199,47 +226,66 @@ def record_call_shapes(model, tag):
     return gn, attn
 
 
-def record_sd_call_shapes(models):
-    """{"SD-UNet", "SD-decode", "SD-encode"} -> (GN calls (C, H, W, eps),
-    attention calls (heads, N_q, N_kv, D)) of one forward each of the SD
-    bundle's models, recorded with forward pre-hooks."""
+def record_t2i_call_shapes(model, *args):
+    """(GN calls (C, H, W, eps), attention calls (heads, N_q, N_kv, D)) of
+    one forward of an SD, LCM or IF U-Net or an SD VAE half, recorded with
+    forward pre-hooks (IF's norm_cross is a GN call of shape (C, 1, 77);
+    its added-KV attention has N_kv = 77 + N_q)."""
+    from loco_edit_tpu_torch.models.ifm.unet import IFAttention
     from loco_edit_tpu_torch.models.sd.unet import CrossAttention, GroupNormF32
     from loco_edit_tpu_torch.models.sd.vae import VAEAttention
 
-    out = {}
-    runs = {"SD-UNet": (models["unet"], (torch.zeros(1, 64, 64, 4, device="cuda"), 500.0,
-                                         torch.zeros(1, 77, 1024, device="cuda"))),
-            "SD-decode": (models["decoder"], (torch.zeros(1, 64, 64, 4, device="cuda"),)),
-            "SD-encode": (models["encoder"], (torch.zeros(1, 512, 512, 3, device="cuda"),))}
-    for tag, (model, args) in runs.items():
-        gn, attn, hooks = [], [], []
-        for m in model.modules():
-            if isinstance(m, GroupNormF32):
-                hooks.append(m.register_forward_pre_hook(
-                    lambda mod, a: gn.append(tuple(a[0].shape[1:]) + (mod.eps,))))
-            elif isinstance(m, CrossAttention):
-                def rec(mod, a, kw):
-                    x, ctx = a[0], (a[1] if len(a) > 1 else kw.get("context"))
-                    n_kv = x.shape[1] if ctx is None else ctx.shape[1]
-                    attn.append((mod.heads, x.shape[1], n_kv, x.shape[2] // mod.heads))
-                hooks.append(m.register_forward_pre_hook(rec, with_kwargs=True))
-            elif isinstance(m, VAEAttention):
-                def rec_vae(mod, a):
-                    n = a[0].shape[2] * a[0].shape[3]
-                    attn.append((1, n, n, a[0].shape[1]))
-                hooks.append(m.register_forward_pre_hook(rec_vae))
-        with torch.no_grad():
-            model(*args)
-        for h in hooks:
-            h.remove()
-        out[tag] = (gn, attn)
-    return out
+    gn, attn, hooks = [], [], []
+
+    def rec_xattn(mod, a, kw):
+        x, ctx = a[0], (a[1] if len(a) > 1 else kw.get("context"))
+        n_kv = x.shape[1] if ctx is None else ctx.shape[1]
+        attn.append((mod.heads, x.shape[1], n_kv, x.shape[2] // mod.heads))
+
+    def rec_vae(mod, a):
+        n = a[0].shape[2] * a[0].shape[3]
+        attn.append((1, n, n, a[0].shape[1]))
+
+    def rec_if(mod, a):
+        n = a[0].shape[2] * a[0].shape[3]
+        attn.append((mod.heads, n, a[1].shape[1] + n, a[0].shape[1] // mod.heads))
+
+    for m in model.modules():
+        if isinstance(m, GroupNormF32):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a: gn.append(tuple(a[0].shape[1:]) + (mod.eps,))))
+        elif isinstance(m, CrossAttention):
+            hooks.append(m.register_forward_pre_hook(rec_xattn, with_kwargs=True))
+        elif isinstance(m, VAEAttention):
+            hooks.append(m.register_forward_pre_hook(rec_vae))
+        elif isinstance(m, IFAttention):
+            hooks.append(m.register_forward_pre_hook(rec_if))
+    with torch.no_grad():
+        model(*args)
+    for h in hooks:
+        h.remove()
+    return gn, attn
+
+
+def record_sd_call_shapes(models):
+    """{"SD-UNet", "SD-decode", "SD-encode"} -> the GN and attention calls of
+    one forward each of the SD bundle's models."""
+    z = torch.zeros(1, 64, 64, 4, device="cuda")
+    return {"SD-UNet": record_t2i_call_shapes(
+                models["unet"], z, 500.0, torch.zeros(1, 77, 1024, device="cuda")),
+            "SD-decode": record_t2i_call_shapes(models["decoder"], z),
+            "SD-encode": record_t2i_call_shapes(
+                models["encoder"], torch.zeros(1, 512, 512, 3, device="cuda"))}
 
 
 # per model: GN eps, GN and attention calls per forward, batch sizes timed
+# (the batches the main paths give the kernels: LCM runs batch 1 in
+# generate, the basis primal and the text direction, batch 3 in the strip;
+# IF-I-M the CFG batch 2, the IF-II-M upscaler 5 frames x CFG 2)
 MODELS = {"P2": (1e-5, 65, 4, (1, 45)), "DDPM": (1e-6, 71, 6, (1, 45)),
           "SD-UNet": (None, 61, 32, (2,)), "SD-decode": (None, 30, 1, (1,)),
-          "SD-encode": (None, 22, 1, (1,))}
+          "SD-encode": (None, 22, 1, (1,)), "LCM-UNet": (None, 61, 32, (1, 3)),
+          "IF-I-M": (None, 117, 22, (2,)), "IF-II-M": (None, 89, 8, (10,))}
 
 
 def gn_row(tag, dtype, b, shape, per_forward, g):
@@ -288,7 +334,8 @@ def attn_mutant_errs(q, k, v, tile):
 
 def attn_row(tag, dtype, b, shape, per_forward, g):
     from loco_edit_tpu_torch.ops.flash_attention import (attention_plain,
-                                                         flash_attention_cuda, route)
+                                                         flash_attention_cuda,
+                                                         kernel_geometry, route)
 
     heads, nq, nkv, d = shape
     dt = str(dtype).split(".")[1]
@@ -299,7 +346,7 @@ def attn_row(tag, dtype, b, shape, per_forward, g):
     err = (flash_attention_cuda(q, k, v).float() - ref).abs().max().item()
     tol = (min(ATTN_BF16_CAP, ATTN_BF16_ULPS * ref.abs().max().item())
            if dtype == torch.bfloat16 else TOL[("flash_attention", dt)])
-    mutants = attn_mutant_errs(q, k, v, 64 if d <= 128 else 32)
+    mutants = attn_mutant_errs(q, k, v, kernel_geometry(d).block_k)
     bms, by = bound(2 * b * heads * (nq + nkv) * d * q.element_size(),
                     4 * b * heads * nq * nkv * d, dt)
     return dict(
@@ -382,18 +429,23 @@ def forward_sums(rows, name, batch, tag):
 
 
 # model tag -> (key prefix in the kernels line, batch of the plain keys,
-# batch of the keys ending in _b45 or None)
+# batch of the keys ending in _b<batch> or None)
 SUMMARY = {"P2": ("", 1, 45), "DDPM": ("ddpm_", 1, 45), "SD-UNet": ("sd_unet_", 2, None),
-           "SD-decode": ("sd_decode_", 1, None), "SD-encode": ("sd_encode_", 1, None)}
+           "SD-decode": ("sd_decode_", 1, None), "SD-encode": ("sd_encode_", 1, None),
+           "LCM-UNet": ("lcm_unet_", 1, 3), "IF-I-M": ("if_unet_", 2, None),
+           "IF-II-M": ("if_stage2_", 10, None)}
 
 
 def summarize(rows, name, source, replaces, launches):
     """One kernels-line entry: the sums over the calls of one P2 forward in
     bf16 at batch 1 under the plain keys, at batch 45 under the keys ending
     in _b45; the same sums of one CelebA_HQ_HF forward under keys starting
-    with ddpm_, of one SD U-Net forward at batch 2 under sd_unet_ and of one
-    VAE decode / encode under sd_decode_ / sd_encode_. `launches` maps each
-    main path to its count; the entry's `launches` is their total."""
+    with ddpm_, of one SD U-Net forward at batch 2 under sd_unet_, of one
+    VAE decode / encode under sd_decode_ / sd_encode_, of one LCM U-Net
+    forward at batch 1 (and 3, _b3) under lcm_unet_, of one IF-I-M forward
+    at batch 2 under if_unet_ and of one IF-II-M forward at batch 10 under
+    if_stage2_. `launches` maps each main path to its count; the entry's
+    `launches` is their total."""
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": sum(launches.values()), "launches_by_path": launches,
              "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -410,8 +462,8 @@ def summarize(rows, name, source, replaces, launches):
         entry[f"{prefix}bound_by"] = ("bytes" if by_bytes >= tot["bound_ms"] / 2
                                       else "operations")
         if b2:
-            b45 = forward_sums(rows, name, b2, tag)
-            entry.update({f"{prefix}{k}_b45": b45[k] for k in SUM_KEYS})
+            big = forward_sums(rows, name, b2, tag)
+            entry.update({f"{prefix}{k}_b{b2}": big[k] for k in SUM_KEYS})
     return entry
 
 
@@ -550,16 +602,20 @@ def write_celeba_tree(root, size=256, seed=3):
 
 class ForwardCounter:
     """Counts forward calls of module classes (a global forward pre-hook;
-    transforms such as vmap and jvp run a forward once per call)."""
+    transforms such as vmap and jvp run a forward once per call), by class
+    name; an IF U-Net with the aug-level class embedding (the stage-2
+    upscaler) counts as "IFUNet-II"."""
 
     def __init__(self, *classes):
         self.classes = classes
         self.calls = {c.__name__: 0 for c in classes}
 
     def _hook(self, mod, args):
-        for c in self.classes:
-            if isinstance(mod, c):
-                self.calls[c.__name__] += 1
+        if isinstance(mod, self.classes):
+            name = type(mod).__name__
+            if getattr(getattr(mod, "cfg", None), "class_embed_timestep", False):
+                name += "-II"
+            self.calls[name] = self.calls.get(name, 0) + 1
 
     def __enter__(self):
         self.handle = torch.nn.modules.module.register_module_forward_pre_hook(self._hook)
@@ -741,13 +797,7 @@ def phase_sd_forward_vs_cpu(models):
 
     # the bf16 networks (the edit's dtype) on the same weights, against the
     # f32 CPU: eps and the decoded image of PMP(z)
-    half = {}
-    for name in ("unet", "decoder"):
-        m = models[name]
-        with torch.device("cuda"):
-            half[name] = type(m)(dataclasses.replace(m.cfg, dtype=torch.bfloat16))
-        half[name].load_state_dict(m.state_dict())
-        half[name].requires_grad_(False).eval()
+    half = {name: bf16_copy(models[name]) for name in ("unet", "decoder")}
     zd, cd = z.cuda(), ctx.cuda()
     with torch.no_grad():
         eps16 = half["unet"](zd, t, cd)
@@ -768,19 +818,24 @@ def phase_sd_forward_vs_cpu(models):
     del half
 
 
-def check_sd_launches(what, launches, fwd, predicted_fwd):
-    """Launches must be 61 GN + 32 attention per U-Net forward, 30 + 1 per
-    decode, 22 + 1 per encode; forwards what the run's steps predict."""
-    u, d, e = fwd["SDUNet"], fwd["VAEDecoder"], fwd["VAEEncoder"]
-    predicted = {"groupnorm": 61 * u + 30 * d + 22 * e,
-                 "flash_attention": 32 * u + d + e}
-    log(f"[8 sd] {what}: forwards U-Net {u}, decode {d}, encode {e} (predicted "
-        f"{predicted_fwd}); launches {launches}, predicted {predicted}")
-    if (u, d, e) != predicted_fwd:
-        fail(f"SD {what}: forwards {(u, d, e)} != predicted {predicted_fwd}")
+def check_t2i_launches(tag, what, launches, fwd, predicted_fwd, per_forward):
+    """Launches must be per_forward[name] (GN, attention) per forward of each
+    counted model; forwards what the run's steps predict."""
+    predicted = {"groupnorm": sum(per_forward[k][0] * fwd.get(k, 0) for k in per_forward),
+                 "flash_attention": sum(per_forward[k][1] * fwd.get(k, 0)
+                                        for k in per_forward)}
+    got_fwd = {k: fwd.get(k, 0) for k in predicted_fwd}
+    log(f"[{tag}] {what}: forwards {got_fwd} (predicted {predicted_fwd}); launches "
+        f"{launches}, predicted {predicted}")
+    if got_fwd != predicted_fwd:
+        fail(f"{tag} {what}: forwards {got_fwd} != predicted {predicted_fwd}")
     if launches != predicted:
-        fail(f"SD {what}: launches {launches} != predicted {predicted}: a path went "
+        fail(f"{tag} {what}: launches {launches} != predicted {predicted}: a path went "
              "around a kernel or launched it more than once per forward")
+
+
+# GN and attention launches per forward of each counted model
+SD_PER_FWD = {"SDUNet": (61, 32), "VAEDecoder": (30, 1), "VAEEncoder": (22, 1)}
 
 
 def phase_sd_cli(work_dir, image_px=512):
@@ -859,8 +914,9 @@ def phase_sd_cli(work_dir, image_px=512):
         f"{norms.round(6).tolist()}")
     if not all(checks.values()):
         fail(f"SD CLI edit checks failed: {checks}")
-    check_sd_launches("edit", launches, fwd, (
-        pipe.edit_t_idx + 1 + 5 + chunks * steps_left, 1 + 5 + chunks, 0))
+    check_t2i_launches("8 sd", "edit", launches, fwd, {
+        "SDUNet": pipe.edit_t_idx + 1 + 5 + chunks * steps_left,
+        "VAEDecoder": 1 + 5 + chunks, "VAEEncoder": 0}, SD_PER_FWD)
 
     prompts = pipe.prompt_set(for_prompt, edit_prompt)
     mode = pipe.cfg.tilda_v_score_type
@@ -875,7 +931,8 @@ def phase_sd_cli(work_dir, image_px=512):
         f"{d_peak:.2f} GiB; checks {d_checks}")
     if not all(d_checks.values()):
         fail(f"SD text-supervised direction checks failed: {d_checks}")
-    check_sd_launches("delta_zt_via_grad", d_launches, d_fwd, (3, 3, 0))
+    check_t2i_launches("8 sd", "delta_zt_via_grad", d_launches, d_fwd,
+                       {"SDUNet": 3, "VAEDecoder": 3, "VAEEncoder": 0}, SD_PER_FWD)
 
     yy, xx = np.mgrid[:px, :px] / px
     img = np.random.default_rng(4).uniform(-0.2, 0.2, (px, px, 3))
@@ -889,8 +946,310 @@ def phase_sd_cli(work_dir, image_px=512):
         f"checks {i_checks}")
     if not all(i_checks.values()):
         fail(f"SD inversion checks failed: {i_checks}")
-    check_sd_launches("invert", i_launches, i_fwd, (len(pipe.inv_grid), 0, 1))
+    check_t2i_launches("8 sd", "invert", i_launches, i_fwd, {
+        "SDUNet": len(pipe.inv_grid), "VAEDecoder": 0, "VAEEncoder": 1}, SD_PER_FWD)
     return launches, d_launches, i_launches
+
+
+LCM_CUTS = "5 basis sweeps (min_iter = max_iter = 5; the reference: 10-50 until 1e-3)"
+LCM_W = 6.5     # the guidance embedding's w = guidance_scale - 1 at guidance 7.5
+
+
+def load_lcm_models(dtype: str):
+    """LCM Dreamshaper v7 (the SD 1.5 U-Net with cond_proj) and its 512 px
+    VAE with seeded random weights on the card, through the CLI's registry
+    (load_sd_bundle with lcm=True)."""
+    import argparse
+
+    from loco_edit_tpu_torch.models.t2i_registry import load_sd_bundle
+
+    args = argparse.Namespace(dtype=dtype, checkpoint_path="", vae_path="",
+                              text_encoder_path="", device="cuda")
+    return load_sd_bundle(args, lcm=True)["models"]
+
+
+def unet_vs_cpu(tag, unet, args, bf16_unet):
+    """A full-width f32 U-Net's eps on the card against the same weights on
+    the CPU (FWD_RTOL of the largest |eps|), then the bf16 U-Net on the same
+    weights against the f32 CPU (relative L2 within BF16_FWD_RTOL)."""
+    with torch.device("cpu"):
+        cpu = type(unet)(unet.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in unet.state_dict().items()})
+    cpu.requires_grad_(False).eval()
+    out = {}
+    for dev, m in (("cuda", unet), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[dev] = (m(*(a.to(dev) if isinstance(a, torch.Tensor) else a
+                            for a in args)).cpu(), time.perf_counter() - t0)
+    a, b = out["cuda"][0], out["cpu"][0]
+    if not (torch.isfinite(a).all() and a.shape == b.shape):
+        fail(f"full-width f32 {tag} eps on the card is not finite of shape {tuple(b.shape)}")
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    with torch.no_grad():
+        e16 = bf16_unet(*(a.cuda() if isinstance(a, torch.Tensor) else a
+                          for a in args)).float().cpu()
+    if not (torch.isfinite(e16).all() and e16.shape == b.shape):
+        fail(f"full-width bf16 {tag} eps on the card is not finite of shape {tuple(b.shape)}")
+    l2 = ((e16 - b).norm() / b.norm()).item()
+    mx = ((e16 - b).abs().max() / b.abs().max()).item()
+    log(f"[3 forward] {tag} f32 eps card vs CPU rel err {rel:.2e} (max |eps| "
+        f"{b.abs().max().item():.3f}), tol {FWD_RTOL:.0e}; forward card {out['cuda'][1]:.2f} s, "
+        f"CPU {out['cpu'][1]:.2f} s; bf16 on the card vs f32 CPU: rel L2 err {l2:.2e}, "
+        f"rel max err {mx:.2e}, tol (rel L2) {BF16_FWD_RTOL:.0e}")
+    if not rel <= FWD_RTOL:
+        fail(f"full-width f32 {tag} eps: card vs CPU relative error {rel:.2e} > {FWD_RTOL:.0e}")
+    if not l2 <= BF16_FWD_RTOL:
+        fail(f"full-width bf16 {tag} eps: relative L2 error {l2:.2e} > {BF16_FWD_RTOL:.0e}")
+
+
+def bf16_copy(model):
+    """The same network in bf16 on the card, loaded from model's weights."""
+    with torch.device("cuda"):
+        half = type(model)(dataclasses.replace(model.cfg, dtype=torch.bfloat16))
+    half.load_state_dict(model.state_dict())
+    return half.requires_grad_(False).eval()
+
+
+def phase_lcm_kernels_and_forward(models):
+    """Phase 9's kernel rows at every LCM U-Net call shape (batch 1 and the
+    strip's 3), and the full-width eps checks."""
+    unet = models["unet"]
+    rng = np.random.default_rng(5)
+    z = torch.from_numpy(rng.normal(size=(1, 64, 64, 4)).astype(np.float32))
+    ctx = torch.from_numpy((rng.normal(size=(1, 77, 768)) * 0.2).astype(np.float32))
+    w = torch.full((1,), LCM_W)
+    rows = kernel_rows("LCM-UNet", *record_t2i_call_shapes(
+        unet, z.cuda(), 759.0, ctx.cuda(), w.cuda()))
+    half = bf16_copy(unet)
+    unet_vs_cpu("LCM Dreamshaper v7 (t=759, w=6.5)", unet, (z, 759.0, ctx, w), half)
+    del half
+    return rows
+
+
+def phase_lcm_cli(work_dir, image_px=512):
+    """The LCM edit through the CLI at the reference script's settings
+    (scripts/main_T2I_LCM_null_space_projection_nonsemantic.sh), bf16, then
+    delta_zt_via_grad from Python on the CLI's pipeline. Returns the launch
+    counts of each run. image_px: the VAE's image size (a CPU rehearsal with
+    a tiny bundle passes its own)."""
+    import functools
+
+    from loco_edit_tpu_torch.cli.main import main as cli_main
+    from loco_edit_tpu_torch.models.sd import SDUNet, VAEDecoder, VAEEncoder
+    from loco_edit_tpu_torch.pipelines import lcm as lcm_pipeline
+
+    root = os.path.join(work_dir, "lcm")
+    mask_dir = os.path.join(root, "LCM-Random-nonsemantic", "results", "mask")
+    os.makedirs(mask_dir)
+    px = image_px
+    masks = np.zeros((1, px, px, 3), bool)
+    masks[:, px // 8:3 * px // 8, 5 * px // 16:11 * px // 16] = True
+    np.savez(os.path.join(mask_dir, "mask.npz"), masks=masks)
+    for_prompt, edit_prompt = "A photo of a man", "A photo of a man having curly hair"
+    argv = ["--model_name", "LCM_Dreamshaper_v7", "--dataset_name", "Random",
+            "--dtype", "bf16", "--device", "cuda", "--for_prompt", for_prompt,
+            "--edit_prompt", edit_prompt, "--guidance_scale", "7.5",
+            "--guidance_scale_edit", "7.5", "--num_inference_steps", "4",
+            "--edit_t_idx", "2", "--x_space_guidance_scale", "0.4",
+            "--x_space_guidance_num_step", "24", "--run_edit_null_space_projection_zt",
+            "true", "--null_space_projection", "true", "--pca_rank", "5",
+            "--pca_rank_null", "5", "--tilda_v_score_type", "null+(for-null)+(edit-null)",
+            "--non_semantic", "true", "--use_yh_custom_scheduler", "false",
+            "--use_mask", "true", "--mask_index", "0", "--note", "nonsemantic",
+            "--seed", "0", "--vis_num", "1", "--result_folder", root]
+    log(f"[9 lcm] python -m loco_edit_tpu_torch.cli.main {' '.join(argv)}; cuts: {LCM_CUTS}")
+    pipes = []
+    run_zt = lcm_pipeline.LCMEditPipeline.run_edit_null_space_projection_zt
+
+    def capture(self, *a, **k):
+        pipes.append(self)
+        return run_zt(self, *a, **k)
+
+    config = lcm_pipeline.LCMEditConfig
+    lcm_pipeline.LCMEditPipeline.run_edit_null_space_projection_zt = capture
+    lcm_pipeline.LCMEditConfig = functools.partial(config, min_iter=5, max_iter=5)
+    try:
+        res, launches, fwd, total_s, peak = run_main_path(
+            lambda: cli_main(argv), SDUNet, VAEDecoder, VAEEncoder)
+    finally:
+        lcm_pipeline.LCMEditPipeline.run_edit_null_space_projection_zt = run_zt
+        lcm_pipeline.LCMEditConfig = config
+    pipe = pipes[0]
+    out = res["edit"]
+    n_frames = out["image"].shape[0]
+    chunks = -(-n_frames // pipe.cfg.memory_bound)
+    steps_left = len(pipe.grid) - pipe.cfg.edit_t_idx
+    vT = out["vT"]
+    norms = np.linalg.norm(vT, axis=1)
+    lat = (1,) + tuple(pipe.latent_shape)
+    files = sorted(os.listdir(out["out_dir"])) + sorted(
+        os.listdir(os.path.join(out["out_dir"], "basis")))
+    checks = {
+        "config": (pipe.cfg.min_iter, pipe.cfg.max_iter, pipe.w) == (5, 5, LCM_W),
+        "grid": pipe.grid.t.tolist() == [999, 759, 519, 279],
+        "zt": out["zt"].shape == lat and bool(np.isfinite(out["zt"]).all()),
+        "vT_shape": list(vT.shape) == [5, int(np.prod(lat))],
+        "vT_finite": bool(np.isfinite(vT).all()),
+        "vT_unit_norm": bool(np.abs(norms - 1).max() < 1e-4),
+        "strip": out["image"].shape == (3, px, px, 3) and bool(np.isfinite(out["image"]).all()),
+        "png": "edit-lcm-idx2.png" in files, "npz": "vT.npz" in files,
+    }
+    phases = {k: round(v, 3) for k, v in res["timings"]["edit"].items()}
+    log(f"[9 lcm] edit: {total_s:.2f} s total (model build included); phases (s) "
+        f"{phases}; peak device memory {peak:.2f} GiB; {n_frames} strip frames in "
+        f"{chunks} chunk(s); checks {checks}; |vT| rows {norms.round(6).tolist()}")
+    if not all(checks.values()):
+        fail(f"LCM CLI edit checks failed: {checks}")
+    # U-Net: generate (edit_t_idx steps) + basis (1 vjp primal + 1 jvp primal
+    # per sweep) + strip (chunks x the remaining steps); decodes: basis + strip
+    check_t2i_launches("9 lcm", "edit", launches, fwd, {
+        "SDUNet": pipe.cfg.edit_t_idx + 1 + 5 + chunks * steps_left,
+        "VAEDecoder": 1 + 5 + chunks, "VAEEncoder": 0}, SD_PER_FWD)
+
+    d_vT, d_launches, d_fwd, d_s, d_peak = run_main_path(
+        lambda: pipe.delta_zt_via_grad(out["zt"], for_prompt, edit_prompt, masks),
+        SDUNet, VAEDecoder, VAEEncoder)
+    d_vT = d_vT.cpu().numpy()
+    d_checks = {"shape": d_vT.shape == (1, int(np.prod(lat))),
+                "finite": bool(np.isfinite(d_vT).all()),
+                "unit_norm": abs(float(np.linalg.norm(d_vT)) - 1) < 1e-4}
+    log(f"[9 lcm] delta_zt_via_grad: {d_s:.2f} s; peak device memory {d_peak:.2f} GiB; "
+        f"checks {d_checks}")
+    if not all(d_checks.values()):
+        fail(f"LCM text-supervised direction checks failed: {d_checks}")
+    check_t2i_launches("9 lcm", "delta_zt_via_grad", d_launches, d_fwd,
+                       {"SDUNet": 3, "VAEDecoder": 3, "VAEEncoder": 0}, SD_PER_FWD)
+    return launches, d_launches
+
+
+IF_PER_FWD = {"IFUNet": (117, 22), "IFUNet-II": (89, 8)}
+
+
+def write_if_checkpoint(preset: str, path: str, seed: int) -> int:
+    """A seeded diffusers-named state_dict of an IF preset at full width
+    (the port's weights under the converter's diffusers names), written to
+    path; returns its parameter count."""
+    from loco_edit_tpu_torch.models.ifm import IFUNet, if_preset
+    from loco_edit_tpu_torch.models.ifm.convert import _if_rules
+    from loco_edit_tpu_torch.models.sd.convert import _rename
+
+    with torch.device("cuda"):
+        m = IFUNet(if_preset(preset))
+    m.init_random_(torch.Generator("cuda").manual_seed(seed))
+    rules = _if_rules(m.cfg)
+    torch.save({_rename(k, rules): v.detach().cpu() for k, v in m.state_dict().items()},
+               path)
+    n = sum(p.numel() for p in m.parameters())
+    del m
+    return n
+
+
+def phase_if_kernels_and_forward(ckpt1, ckpt2):
+    """Phase 10's kernel rows at every IF-I-M call shape (the CFG batch 2)
+    and every IF-II-M one (5 frames x CFG 2), and the IF-I-M eps checks; the
+    models loaded from the written checkpoints through the CLI's registry
+    (infer_if_config and the converter at full width)."""
+    from loco_edit_tpu_torch.models.t2i_registry import _load_if_model
+
+    dev = torch.device("cuda")
+    unet = _load_if_model(ckpt1, torch.float32, dev)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(1, 64, 64, 3)).astype(np.float32))
+    ctx = torch.from_numpy((rng.normal(size=(1, 77, 4096)) * 0.2).astype(np.float32))
+    rows = kernel_rows("IF-I-M", *record_t2i_call_shapes(
+        unet, torch.cat([x, x]).cuda(), 742.5, torch.cat([ctx, ctx]).cuda()))
+    half = bf16_copy(unet)
+    unet_vs_cpu("IF-I-M (t=742.5)", unet, (x, 742.5, ctx), half)
+    log(f"[10 if] IF-I-M from {os.path.basename(ckpt1)}: inferred {unet.cfg.block_out_channels} "
+        f"x {unet.cfg.layers_per_block}, {sum(p.numel() for p in unet.parameters()):,} "
+        "parameters")
+    del unet, half
+    stage2 = _load_if_model(ckpt2, torch.float32, dev, stage2=True)
+    y = torch.zeros(10, 256, 256, 6, device="cuda")
+    rows += kernel_rows("IF-II-M", *record_t2i_call_shapes(
+        stage2, y, 500.0, torch.zeros(10, 77, 4096, device="cuda"), 250.0))
+    log(f"[10 if] IF-II-M from {os.path.basename(ckpt2)}: "
+        f"{sum(p.numel() for p in stage2.parameters()):,} parameters")
+    del stage2
+    return rows
+
+
+def phase_if_cli(work_dir, ckpt1, ckpt2):
+    """The semantic IF edit through the CLI at the reference script's
+    settings (scripts/main_T2I_DeepFloydIF_null_space_projection.sh) with the
+    DiffEdit mask, bf16, from the written IF-I-M checkpoint, then the
+    IF-II-M upscale of the strip. Returns the launch counts."""
+    from loco_edit_tpu_torch.cli.main import main as cli_main
+    from loco_edit_tpu_torch.models.ifm import IFUNet
+    from loco_edit_tpu_torch.pipelines import deepfloyd
+
+    root = os.path.join(work_dir, "if")
+    argv = ["--model_name", "DeepFloyd-IF-I-M", "--dataset_name", "Random",
+            "--dtype", "bf16", "--device", "cuda", "--checkpoint_path", ckpt1,
+            "--stage2_checkpoint_path", ckpt2, "--for_prompt", "A photo of a man",
+            "--edit_prompt", "A photo of a man wearing glasses", "--guidance_scale", "7.0",
+            "--guidance_scale_edit", "4.0", "--for_steps", "100", "--edit_t", "0.75",
+            "--performance_boosting_t", "0", "--x_space_guidance_scale", "1.0",
+            "--x_space_guidance_num_step", "4",
+            "--run_edit_null_space_projection_xt_semantic", "true",
+            "--null_space_projection", "true", "--pca_rank", "1", "--pca_rank_null", "5",
+            "--tilda_v_score_type", "(for-edit)-direct", "--jacobian", "false",
+            "--use_mask", "true", "--mask_type", "diffedit", "--seed", "1",
+            "--vis_num", "2", "--result_folder", root]
+    log(f"[10 if] python -m loco_edit_tpu_torch.cli.main {' '.join(argv)}")
+    pipes = []
+    run_xt = deepfloyd.IFEditPipeline.run_edit_null_space_projection_xt
+
+    def capture(self, *a, **k):
+        pipes.append(self)
+        return run_xt(self, *a, **k)
+
+    deepfloyd.IFEditPipeline.run_edit_null_space_projection_xt = capture
+    try:
+        res, launches, fwd, total_s, peak = run_main_path(lambda: cli_main(argv), IFUNet)
+    finally:
+        deepfloyd.IFEditPipeline.run_edit_null_space_projection_xt = run_xt
+    pipe = pipes[0]
+    out, mask = res["edit"], res["mask"]
+    n_frames = out["stage1"].shape[0]
+    chunks = -(-n_frames // pipe.cfg.memory_bound)
+    steps = len(pipe.gen_grid)
+    vT = out["vT"]
+    files = sorted(os.listdir(out["out_dir"])) + sorted(
+        os.listdir(os.path.join(out["out_dir"], "basis")))
+    shape, hi = pipe.sample_shape, pipe.superres.out_size
+    log(f"[10 if] stage 1 at {shape}, stage 2 at {hi} px (inferred from the checkpoints)")
+    checks = {
+        "mask": mask.shape == (1, *shape) and 0 < mask.mean() < 1,
+        "xt": out["xt"].shape == (1, *shape) and bool(np.isfinite(out["xt"]).all()),
+        "vT_shape": list(vT.shape) == [1, int(np.prod(shape))],
+        "vT_finite": bool(np.isfinite(vT).all()),
+        "vT_unit_norm": abs(float(np.linalg.norm(vT)) - 1) < 1e-4,
+        "stage1": out["stage1"].shape == (5, *shape)
+        and bool(np.isfinite(out["stage1"]).all()),
+        "stage2": out["image"].shape == (5, hi, hi, 3)
+        and bool(np.isfinite(out["image"]).all()) and float(np.abs(out["image"]).max()) <= 1,
+        "pngs": {"edit-if-stage1.png", "edit-if-stage2.png"} <= set(files),
+        "npz": "vT.npz" in files,
+    }
+    phases = {k: round(v, 3) for k, v in res["timings"]["edit"].items()}
+    n1 = fwd.get("IFUNet", 0)
+    # stage 1: the DiffEdit sample (all steps) + the mask's two eps calls +
+    # generate to edit_t + the direct direction + the null basis (1 + one per
+    # sweep) + the strip; stage 2: the 50-step upscale grid
+    fixed = steps + 2 + pipe.edit_t_idx + 1 + 1 + chunks * (steps - pipe.edit_t_idx)
+    sweeps = n1 - fixed
+    checks["sweeps_in_range"] = 10 <= sweeps <= 50   # IFEditConfig min/max_iter
+    log(f"[10 if] edit: {total_s:.2f} s total (checkpoint loads included); phases (s) "
+        f"{phases}; peak device memory {peak:.2f} GiB; DiffEdit mask {mask.mean():.3f} of "
+        f"pixels; {sweeps} null-basis sweeps; {n_frames} strip frames; checks {checks}")
+    if not all(checks.values()):
+        fail(f"IF CLI edit checks failed: {checks}")
+    sr_steps = len(pipe.superres.grid)
+    check_t2i_launches("10 if", "edit", launches, fwd,
+                       {"IFUNet": fixed + sweeps, "IFUNet-II": sr_steps}, IF_PER_FWD)
+    return launches
 
 
 def main() -> int:
@@ -937,10 +1296,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
         sd_edit, sd_delta, sd_invert = phase_sd_cli(work_dir)
+    torch.cuda.empty_cache()
+
+    lcm32 = load_lcm_models("fp32")
+    n_lcm = sum(p.numel() for p in lcm32["unet"].parameters())
+    log(f"[9 lcm] LCM Dreamshaper v7 U-Net: {n_lcm:,} parameters (expected "
+        f"{LCM_UNET_PARAMS:,}: SD 1.5's and cond_proj's)")
+    if n_lcm != LCM_UNET_PARAMS:
+        fail(f"LCM U-Net has {n_lcm} parameters, expected {LCM_UNET_PARAMS}")
+    rows += phase_lcm_kernels_and_forward(lcm32)
+    del lcm32
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work_dir:
+        lcm_edit, lcm_delta = phase_lcm_cli(work_dir)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as work_dir:
+        ckpts = [os.path.join(work_dir, f"if_stage{i}.pt") for i in (1, 2)]
+        t0 = time.perf_counter()
+        counts = [write_if_checkpoint(name, path, seed) for name, path, seed in
+                  (("IF-I-M", ckpts[0], 10), ("IF-II-M", ckpts[1], 11))]
+        log(f"[10 if] wrote seeded diffusers-named IF-I-M ({counts[0]:,} parameters; the "
+            f"JAX build's {IF_I_M_PARAMS:,}) and IF-II-M ({counts[1]:,}) checkpoints in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if counts != [IF_I_M_PARAMS, IF_II_M_PARAMS]:
+            fail(f"IF parameter counts {counts} != {[IF_I_M_PARAMS, IF_II_M_PARAMS]}")
+        rows += phase_if_kernels_and_forward(*ckpts)
+        torch.cuda.empty_cache()
+        if_edit = phase_if_cli(work_dir, *ckpts)
 
     paths = {"p2_flagship": p2_launches, "ddpm_cli_edit": edit_launches,
              "ddpm_cli_group_edit": group_launches, "sd_cli_edit": sd_edit,
-             "sd_delta_zt_via_grad": sd_delta, "sd_invert": sd_invert}
+             "sd_delta_zt_via_grad": sd_delta, "sd_invert": sd_invert,
+             "lcm_cli_edit": lcm_edit, "lcm_delta_zt_via_grad": lcm_delta,
+             "if_cli_edit": if_edit}
     kernels = [
         summarize(rows, "groupnorm", "loco_edit_tpu_torch/csrc/groupnorm.cu",
                   "loco_edit_tpu/ops/pallas/groupnorm_stats.py:70",

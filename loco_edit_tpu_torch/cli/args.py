@@ -183,8 +183,6 @@ UNPORTED = {
     "verify_load": ("", "Queue A item 14 (cli/verify_load.py)"),
     "sampling_mode": (False, "Queue A item 13 (SAM masks)"),
 }
-T2I_FAMILIES = {"LCM": "Queue A item 11 (LCM)",
-                "DeepFloyd": "Queue A item 12 (DeepFloyd-IF)"}
 
 
 def check_supported(args) -> None:
@@ -194,11 +192,10 @@ def check_supported(args) -> None:
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)!r}: not ported yet, see ROADMAP.md {item}")
-    for family, item in T2I_FAMILIES.items():
-        if family in args.model_name:
-            raise NotImplementedError(
-                f"--model_name {args.model_name!r}: the {family} engine is not "
-                f"ported yet, see ROADMAP.md {item}")
+    if args.pixel_output and ("LCM" in args.model_name or "DeepFloyd" in args.model_name):
+        raise NotImplementedError(
+            f"--pixel_output with {args.model_name!r}: not ported yet, see "
+            "ROADMAP.md Queue A item 15")
 
 
 def preset(args):

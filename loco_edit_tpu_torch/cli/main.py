@@ -1,6 +1,7 @@
-"""CLI entry point (port of the uncond and SD parts of
-loco_edit_tpu/cli/main.py): parse flags, preset, build the engine for the
-model family, dispatch experiments. Runs on the card unless `--device cpu`.
+"""CLI entry point (port of loco_edit_tpu/cli/main.py): parse flags,
+preset, build the engine for the model family (the uncond ADM and DDPM
+families, SD, LCM, DeepFloyd-IF), dispatch experiments. Runs on the card
+unless `--device cpu`.
 
 Run e.g.:
   python -m loco_edit_tpu_torch.cli.main --model_name CelebA_HQ_HF \
@@ -98,13 +99,18 @@ def main(argv=None):
 def main_dispatch(args) -> dict:
     """Run the experiments the flags select. Returns their outputs by name:
     "forward" and "inversion" (numpy batches), "edit" (the result dict of
-    run_edit_null_space_projection, or of run_edit_null_space_projection_zt
-    for SD), "group" (the group-edit frames), and "timings" (seconds per
-    pipeline phase of "edit" and "group")."""
+    run_edit_null_space_projection, of run_edit_null_space_projection_zt for
+    SD and LCM, of run_edit_null_space_projection_xt for IF), "group" (the
+    group-edit frames), "mask" (IF's DiffEdit mask), and "timings" (seconds
+    per pipeline phase of "edit" and "group")."""
     from loco_edit_tpu_torch.utils.io import save_image_grid
 
+    if args.is_LCM:
+        return _main_lcm(args)
     if args.is_stable_diffusion:
         return _main_sd(args)
+    if args.is_DeepFloyd_IF_diffusion:
+        return _main_if(args)
     pipe, denoiser, rng = build_uncond_pipeline(args)
     results = {"timings": {}}
 
@@ -174,6 +180,56 @@ def build_sd_pipeline(args):
     return pipe, b, rng
 
 
+def build_lcm_pipeline(args):
+    from loco_edit_tpu_torch.core.rng import seed_everything
+    from loco_edit_tpu_torch.models.t2i_registry import load_sd_bundle
+    from loco_edit_tpu_torch.pipelines.lcm import LCMEditConfig, LCMEditPipeline
+
+    rng = seed_everything(args.seed)
+    b = load_sd_bundle(args, lcm=True)
+    cfg = LCMEditConfig(
+        num_inference_steps=args.num_inference_steps,
+        edit_t_idx=args.edit_t_idx, guidance_scale=args.guidance_scale,
+        x_space_guidance_scale=args.x_space_guidance_scale,
+        x_space_guidance_num_step=args.x_space_guidance_num_step,
+        vis_num=args.vis_num, pca_rank=args.pca_rank,
+        pca_rank_null=args.pca_rank_null,
+        null_space_projection=args.null_space_projection,
+        non_semantic=args.non_semantic, use_sega=args.use_sega,
+        memory_bound=args.memory_bound,
+        probe_chunk=args.probe_chunk or None,
+        result_folder=args.result_folder)
+    pipe = LCMEditPipeline(b["unet_apply"], b["decode"], b["prompt_encoder"], cfg,
+                           rng, latent_shape=b["latent_shape"], device=args.device)
+    return pipe, b, rng
+
+
+def build_if_pipeline(args):
+    from loco_edit_tpu_torch.core.rng import seed_everything
+    from loco_edit_tpu_torch.models.t2i_registry import load_if_bundle
+    from loco_edit_tpu_torch.pipelines.deepfloyd import IFEditConfig, IFEditPipeline
+
+    rng = seed_everything(args.seed)
+    b = load_if_bundle(args)
+    cfg = IFEditConfig(
+        for_steps=args.for_steps, edit_t=args.edit_t,
+        guidance_scale=args.guidance_scale,
+        guidance_scale_edit=args.guidance_scale_edit,
+        x_space_guidance_scale=args.x_space_guidance_scale,
+        x_space_guidance_edit_step=args.x_space_guidance_edit_step,
+        x_space_guidance_num_step=args.x_space_guidance_num_step,
+        vis_num=args.vis_num, pca_rank=args.pca_rank,
+        pca_rank_null=args.pca_rank_null,
+        null_space_projection=args.null_space_projection,
+        tilda_v_score_type=args.tilda_v_score_type or "(for-edit)-direct",
+        jacobian=args.jacobian, probe_chunk=args.probe_chunk or None,
+        memory_bound=args.memory_bound, result_folder=args.result_folder)
+    pipe = IFEditPipeline(b["unet_apply"], b["prompt_encoder"], cfg, rng,
+                          sample_shape=b["sample_shape"], superres=b["superres"],
+                          device=args.device)
+    return pipe, b, rng
+
+
 def _t2i_mask(args):
     """The edit mask of a T2I engine: the cached result_folder/mask/mask.npz
     ("masks", (n, H, W, 3) bool; --mask_index picks one). Making the cache
@@ -207,6 +263,59 @@ def _main_sd(args) -> dict:
         results["edit"] = pipe.run_edit_null_space_projection_zt(
             args.for_prompt, args.edit_prompt, mask=mask, semantic=semantic,
             vT_path=args.vT_path or None)
+        results["timings"]["edit"] = dict(pipe.timings)
+    return results
+
+
+def _main_lcm(args) -> dict:
+    from loco_edit_tpu_torch.utils.io import save_image_grid
+
+    edit = args.run_edit_null_space_projection_zt
+    mask = _t2i_mask(args) if edit and args.use_mask else None
+    pipe, b, rng = build_lcm_pipeline(args)
+    results = {"timings": {}}
+    if args.run_ddim_forward:
+        # a batch of samples as a model-load check (the reference's LCMforward)
+        zT = rng.fork("fwd").normal((5,) + tuple(b["latent_shape"]), device=pipe.device)
+        img = pipe.decode_to_image(pipe.forward_steps(zT, args.for_prompt)[1])
+        save_image_grid(img, os.path.join(args.result_folder, "LCMforward.png"))
+        results["forward"] = img
+    if edit:
+        results["edit"] = pipe.run_edit_null_space_projection_zt(
+            args.for_prompt, args.edit_prompt, mask=mask, vT_path=args.vT_path or None)
+        results["timings"]["edit"] = dict(pipe.timings)
+    return results
+
+
+def _main_if(args) -> dict:
+    from loco_edit_tpu_torch.utils.io import save_image_grid
+
+    semantic = args.run_edit_null_space_projection_xt_semantic
+    edit = args.run_edit_null_space_projection_xt or semantic
+    diffedit = args.mask_type == "diffedit"
+    mask = _t2i_mask(args) if edit and args.use_mask and not diffedit else None
+    pipe, b, rng = build_if_pipeline(args)
+    results = {"timings": {}}
+    if args.run_ddim_forward:
+        xT = rng.fork("fwd").normal((5,) + tuple(b["sample_shape"]), device=pipe.device)
+        img = pipe.forward_steps(xT, pipe.prompt_set(args.for_prompt, args.edit_prompt),
+                                 "null+(for-null)").cpu().numpy()
+        save_image_grid(img, os.path.join(args.result_folder, "IFforward.png"))
+        results["forward"] = img
+    if edit:
+        if args.use_mask and diffedit:
+            # the DiffEdit mask of the sample the edit starts from (the same
+            # "xT" stream), repeated over the 3 channels
+            prompts = pipe.prompt_set(args.for_prompt, args.edit_prompt)
+            xT = rng.fork("xT").normal((1,) + tuple(b["sample_shape"]), device=pipe.device)
+            x0 = pipe.forward_steps(xT, prompts, "null+(for-null)")
+            mask = np.repeat(pipe.diffedit_mask(x0, prompts), 3, axis=-1)
+            results["mask"] = mask
+        ablation = args.ablation_method if args.ablation_method in ("diffedit", "sega") \
+            else None
+        results["edit"] = pipe.run_edit_null_space_projection_xt(
+            args.for_prompt, args.edit_prompt, mask=mask, semantic=semantic,
+            ablation=ablation, vT_path=args.vT_path or None)
         results["timings"]["edit"] = dict(pipe.timings)
     return results
 

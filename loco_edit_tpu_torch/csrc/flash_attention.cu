@@ -43,13 +43,21 @@
 //     32-key tiles so that Q (64 KB), double-buffered K (2 x 32 KB) and V
 //     slices (2 x 8 KB) fit the opt-in shared memory. The cost: S is formed
 //     D / 128 times and K read that many times (from L2 after the first).
+//   - The SD 1.5 / LCM head dims (8 heads of 320, 640, 1280): D = 40 and 80
+//     are not multiples of 16 or of 16-wide n-tile pairs. Q K^T runs over D
+//     rounded up to 16 (40 -> 48: a third k-step over Q and K columns held
+//     at zero in shared memory), and P V ends on a lone 8-wide n-tile
+//     (ldmatrix .x2.trans) where D / 8 is odd. D = 160 is cut into two
+//     equal 80-column slices (kSlices = ceil(D / 128), kDV = D / kSlices),
+//     on 32-key tiles like the other D > 128. static_asserts refuse a D the
+//     tiling cannot cover.
 //
 // f32 route (explicitly for float32 inputs; the f32 checks take it, the bf16
 // model never does): scalar FMA loops from f32 shared memory. TF32 tensor
 // cores would not hold the 1e-3 agreement of the f32 network with the CPU.
 // One block per (batch * head, 32-row query tile, output slice), each warp
 // keeps a running (max, sum, acc) for 8 query rows; wide heads take the same
-// 128-column output slices and 32-key tiles.
+// output slices (at most 128 columns) and 32-key tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,20 +90,32 @@ constexpr int kBlockQ = 64;
 constexpr int kMaxSlice = 128;   // output columns per block
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Tiles of head dim D: Q (64 x D) and K (kBlockK x D) rows of D + 8
-// elements, V slices (kBlockK x kDV) rows of kDV + 8 (16 B padding).
+constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// Tiles of head dim D. The output columns are cut into kSlices equal slices
+// of kDV <= 128 columns (D = 160: two of 80; D = 256, 512: 128 each). Q K^T
+// runs kKD / 16 k-steps over D rounded up to 16 (D = 40: 48), the columns
+// D..kKD-1 of the Q and K tiles held at zero, so they add nothing to S. Q
+// (64 x D) and K (kBlockK x D) rows have a stride of kKD + 8 elements, V
+// slices (kBlockK x kDV) of round16(kDV) + 8: 16 B of padding past a
+// multiple of 32 B, so the 8 rows one ldmatrix reads fall in distinct banks.
 template <int D>
 struct Geo {
-  static constexpr int kDV = D < kMaxSlice ? D : kMaxSlice;
-  static constexpr int kSlices = D / kDV;
+  static constexpr int kSlices = (D + kMaxSlice - 1) / kMaxSlice;
+  static constexpr int kDV = D / kSlices;
+  static constexpr int kKD = round16(D);
   static constexpr int kBlockK = D > kMaxSlice ? 32 : 64;
   static constexpr bool kQInRegs = D <= kMaxSlice;
-  static constexpr int kQStride = D + 8;
-  static constexpr int kVStride = kDV + 8;
+  static constexpr int kQStride = kKD + 8;
+  static constexpr int kVStride = round16(kDV) + 8;
   static constexpr int kQElems = kBlockQ * kQStride;
   static constexpr int kKElems = kBlockK * kQStride;
   static constexpr int kVElems = kBlockK * kVStride;
   static constexpr int kSmemBytes = (kQElems + 2 * kKElems + 2 * kVElems) * 2;
+  static_assert(kSlices * kDV == D, "output slices must cover D exactly");
+  static_assert(kDV % 8 == 0 && kDV <= kMaxSlice, "slice not whole n-tiles");
+  static_assert(kKD >= D && kKD - D < 16 && (kKD - D) % 8 == 0,
+                "k-steps must cover D, the padding one 16-byte chunk at most");
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -132,6 +152,14 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
       : "r"(smem_addr(p)));
 }
 
+// Two transposed 8x8 matrices (lanes 0-15 give the row addresses).
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
 // c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
@@ -148,16 +176,20 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // Start the copies of up to ROWS rows of COLS values into a tile of row
-// stride STRIDE; rows at or past `rows` are zero-filled.
+// stride STRIDE; rows at or past `rows` are zero-filled. A tile of 16-byte
+// chunks that is not a multiple of the block (D = 40, 80: 5 or 10 chunks a
+// row) leaves the last pass partly idle.
 template <int ROWS, int COLS, int STRIDE>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long row_stride, int rows,
                                           int tid) {
   constexpr int kChunks = COLS / 8;
-  static_assert(ROWS * kChunks % kThreads == 0, "tile not a whole number of copies");
+  constexpr int kTotal = ROWS * kChunks;
+  static_assert(COLS % 8 == 0, "rows must be whole 16-byte chunks");
 #pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
+  for (int it = 0; it < (kTotal + kThreads - 1) / kThreads; ++it) {
     const int i = tid + it * kThreads;
+    if (kTotal % kThreads != 0 && i >= kTotal) break;
     const int r = i / kChunks, c = i % kChunks;
     const bool ok = r < rows;
     cp_async16(dst + r * STRIDE + c * 8, ok ? src + r * row_stride + c * 8 : src,
@@ -171,9 +203,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int ROWS, int COLS, int STRIDE>
 __device__ __forceinline__ void scale_tile(bf16* t, float scale, int tid) {
   constexpr int kChunks = COLS / 8;
+  constexpr int kTotal = ROWS * kChunks;
 #pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
+  for (int it = 0; it < (kTotal + kThreads - 1) / kThreads; ++it) {
     const int i = tid + it * kThreads;
+    if (kTotal % kThreads != 0 && i >= kTotal) break;
     uint4* p = reinterpret_cast<uint4*>(t + (i / kChunks) * STRIDE +
                                         (i % kChunks) * 8);
     uint4 u = *p;
@@ -187,7 +221,7 @@ __device__ __forceinline__ void scale_tile(bf16* t, float scale, int tid) {
   }
 }
 
-// grid (ceil(N / 64), B * H, D / kDV), block 128.
+// grid (ceil(N / 64), B * H, kSlices), block 128.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -200,12 +234,13 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int QS = G::kQStride;
   constexpr int VS = G::kVStride;
   constexpr int kDTiles = DV / 8;    // 8-wide n-tiles of this block's O slice
-  constexpr int kKSteps = D / 16;    // 16-deep k-steps of Q K^T
+  constexpr int kKSteps = G::kKD / 16;  // 16-deep k-steps of Q K^T
   constexpr int kKeyTiles = kBlockK / 8;
+  static_assert(kKSteps * 16 >= D, "k-steps must cover D");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][D + 8]
-  bf16* ks = qs + G::kQElems;                    // [2][kBlockK][D + 8]
-  bf16* vs = ks + 2 * G::kKElems;                // [2][kBlockK][DV + 8]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][QS]
+  bf16* ks = qs + G::kQElems;                    // [2][kBlockK][QS]
+  bf16* vs = ks + 2 * G::kKElems;                // [2][kBlockK][VS]
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
@@ -225,6 +260,13 @@ __global__ void __launch_bounds__(kThreads)
   bf16* ob = o + b * so.b + h * so.h + c0;
   const int num_tiles = (nkv + kBlockK - 1) / kBlockK;
 
+  if constexpr (G::kKD != D) {
+    // columns D..kKD-1 of Q and of both K buffers (one 16-byte chunk a
+    // row): zero, never written by a copy; the first __syncthreads in the
+    // key loop orders these stores before any ldmatrix
+    for (int r = tid; r < kBlockQ + 2 * kBlockK; r += kThreads)
+      *reinterpret_cast<uint4*>(qs + r * QS + D) = make_uint4(0u, 0u, 0u, 0u);
+  }
   load_tile<kBlockQ, D, QS>(qs, qb + q0 * sq.n, sq.n, nq - q0, tid);
   load_tile<kBlockK, D, QS>(ks, kb, sk.n, nkv, tid);
   load_tile<kBlockK, DV, VS>(vs, vb, sv.n, nkv, tid);
@@ -337,12 +379,17 @@ __global__ void __launch_bounds__(kThreads)
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int d0 = 0; d0 < DV; d0 += 16) {
+      for (int d0 = 0; d0 + 16 <= DV; d0 += 16) {
         unsigned bfr[4];
         ldsm_x4_trans(bfr, vt + (kk * 16 + (mat % 2) * 8 + r8) * VS + d0 +
                                (mat / 2) * 8);
         mma_bf16(acc[d0 / 8], pa, bfr[0], bfr[1]);
         mma_bf16(acc[d0 / 8 + 1], pa, bfr[2], bfr[3]);
+      }
+      if constexpr (kDTiles % 2) {   // an odd last n-tile (D = 40: 5 tiles)
+        unsigned bfr[2];
+        ldsm_x2_trans(bfr, vt + (kk * 16 + (mat % 2) * 8 + r8) * VS + DV - 8);
+        mma_bf16(acc[kDTiles - 1], pa, bfr[0], bfr[1]);
       }
     }
     __syncthreads();  // this tile's buffers are free for the next prefetch
@@ -412,16 +459,18 @@ constexpr int kBlockQ = 32;                 // query rows per block
 constexpr int kRowsPerWarp = kBlockQ / kWarps;
 constexpr int kMaxSlice = 128;              // output columns per block
 
-// Head dim D: output slices of kDV columns, keys per shared-memory tile.
+// Head dim D: kSlices equal output slices of kDV <= 128 columns (D = 160:
+// two of 80), keys per shared-memory tile.
 template <int D>
 struct Geo {
-  static constexpr int kDV = D < kMaxSlice ? D : kMaxSlice;
-  static constexpr int kSlices = D / kDV;
+  static constexpr int kSlices = (D + kMaxSlice - 1) / kMaxSlice;
+  static constexpr int kDV = D / kSlices;
   static constexpr int kBlockK = D > kMaxSlice ? 32 : 64;
   static constexpr int kSmemFloats = kBlockQ * D + kBlockK * (D + 1) + kBlockK * kDV;
+  static_assert(kSlices * kDV == D, "output slices must cover D exactly");
 };
 
-// grid (ceil(N / 32), B * H, D / kDV), block 128.
+// grid (ceil(N / 32), B * H, kSlices), block 128.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -432,7 +481,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int DV = G::kDV;
   constexpr int kBlockK = G::kBlockK;
   constexpr int kKeysPerLane = kBlockK / 32;
-  constexpr int kDimsPerLane = (DV + 31) / 32;
+  constexpr int kDimsPerLane = (DV + 31) / 32;  // lanes past DV guarded below
   extern __shared__ float smem[];
   float* qs = smem;                        // [kBlockQ][D]
   float* ks = qs + kBlockQ * D;            // [kBlockK][D + 1]
@@ -573,8 +622,11 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
   switch (d) {
     LOCO_ATTN_CASE(16)
     LOCO_ATTN_CASE(32)
+    LOCO_ATTN_CASE(40)
     LOCO_ATTN_CASE(64)
+    LOCO_ATTN_CASE(80)
     LOCO_ATTN_CASE(128)
+    LOCO_ATTN_CASE(160)
     LOCO_ATTN_CASE(256)
     LOCO_ATTN_CASE(512)
     default: return (int)cudaErrorInvalidValue;
@@ -587,7 +639,8 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
 // q, o: (B, H, N_q, D); k, v: (B, H, N_kv, D); element strides (b, h, n)
 // each and a head dim of stride 1; f32 (is_bf16 = 0, FMA route) or bf16
 // (is_bf16 = 1, tensor-core route: pointers 16-byte aligned, strides
-// multiples of 8). D in {16, 32, 64, 128, 256, 512}; N_q, N_kv >= 1.
+// multiples of 8). D in {16, 32, 40, 64, 80, 128, 160, 256, 512};
+// N_q, N_kv >= 1.
 // Returns cudaGetLastError().
 extern "C" int loco_flash_attention(
     const void* q, const void* k, const void* v, void* o, int b, int heads,

@@ -49,7 +49,8 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor
 
     Dense kernels (in, out) become Linear weights (out, in); conv kernels
     HWIO become OIHW; GroupNorm `scale` and Embed `embedding` become
-    `weight`."""
+    `weight`; a raw `positional_embedding` (the IF attention pool's) keeps
+    its name and layout."""
     sd = {}
     for key, arr in flat.items():
         parts = key.split("/")
@@ -62,7 +63,7 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor
             leaf = "weight"
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf not in ("bias", "positional_embedding"):
             raise ValueError(f"unexpected Flax parameter {key!r}")
         sd[".".join(mods + [leaf])] = torch.tensor(a)
     return sd

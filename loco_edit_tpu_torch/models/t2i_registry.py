@@ -1,14 +1,16 @@
-"""T2I model bundles for the CLI (port of the SD part of
-loco_edit_tpu/models/t2i_registry.py).
+"""T2I model bundles for the CLI (port of
+loco_edit_tpu/models/t2i_registry.py): SD 2.1-base, LCM Dreamshaper v7 and
+DeepFloyd-IF (stage 1 and the stage-2 upscaler).
 
 Local checkpoint paths only: --checkpoint_path for the U-Net (a diffusers
 state_dict `.pt`/`.pth`/`.bin`/`.ckpt`/`.safetensors`, or a `.npz` of Flax
 parameters), --vae_path for the AutoencoderKL (a diffusers state_dict),
---text_encoder_path for CLIP (a transformers directory). A missing path
-gives seeded random weights (U-Net seed 0, encoder 1, decoder 2) and the
-deterministic fake prompt encoder, enough to drive the whole engine.
-LOCO_SD_PRESET (e.g. `tiny`) picks another U-Net preset, as in the JAX
-package.
+--text_encoder_path for CLIP or T5 (a transformers directory), and for IF
+--stage2_checkpoint_path for the upscaler. A missing path gives seeded
+random weights (U-Net seed 0, encoder 1, decoder 2; for IF the tiny IF
+config, as in the JAX package) and the deterministic fake prompt encoder,
+enough to drive the whole engine. LOCO_SD_PRESET (e.g. `tiny`) picks
+another SD / LCM U-Net preset, as in the JAX package.
 
 Unlike the JAX package, the bundle leaves per-block rematerialization off:
 torch.utils.checkpoint does not compose with torch.func's jvp and vmap, and
@@ -26,7 +28,8 @@ from loco_edit_tpu_torch.core.device import resolve_device
 from loco_edit_tpu_torch.models.convert_util import check_state_dict
 from loco_edit_tpu_torch.models.sd import (SDUNet, VAEConfig, VAEDecoder, VAEEncoder,
                                            encode_sample, sd_preset)
-from loco_edit_tpu_torch.models.sd.text import clip_prompt_encoder, fake_prompt_encoder
+from loco_edit_tpu_torch.models.sd.text import (clip_prompt_encoder, fake_prompt_encoder,
+                                                 t5_prompt_encoder)
 
 TORCH_CKPT = (".pt", ".pth", ".bin", ".ckpt", ".safetensors")
 
@@ -77,12 +80,13 @@ def _load_vae(cfg: VAEConfig, path: str, device: torch.device):
 
 
 def sd_bundle(unet: SDUNet, enc: VAEEncoder, dec: VAEDecoder, prompt_encoder) -> dict:
-    """The engine's callables over bound models: unet_apply(z, t, ctx),
+    """The engine's callables over bound models: unet_apply(z, t, ctx[, w])
+    (w: the LCM guidance scales, read by a U-Net with `cond_proj`),
     decode(z), encode(x, rng) (a sampled, scaled latent), the prompt
     encoder, the latent shape, and the models under "models"."""
     cfg = unet.cfg
     return {
-        "unet_apply": lambda z, t, c: unet(z, t, c),
+        "unet_apply": lambda z, t, c, w=None: unet(z, t, c, w),
         "decode": lambda z: dec(z),
         "encode": lambda x, rng: encode_sample(*enc(x), rng,
                                                enc.cfg.scaling_factor),
@@ -93,14 +97,16 @@ def sd_bundle(unet: SDUNet, enc: VAEEncoder, dec: VAEDecoder, prompt_encoder) ->
 
 
 def load_sd_bundle(args, lcm: bool = False) -> dict:
-    """SD 2.1-base (or the LOCO_SD_PRESET preset) on args.device: U-Net, VAE
-    at 8x the latent size, prompt encoder."""
-    if lcm:
-        raise NotImplementedError(
-            "the LCM bundle is not ported yet, see ROADMAP.md Queue A item 11 (LCM)")
+    """SD 2.1-base, or with lcm=True LCM Dreamshaper v7 (the SD 1.5 U-Net
+    with the guidance embedding, `cond_proj`), or the LOCO_SD_PRESET preset,
+    on args.device: U-Net, VAE at 8x the latent size, prompt encoder (the
+    fake one is as wide as the preset's context: 1024 for SD 2.1, 768 for
+    SD 1.5 and LCM)."""
     device = resolve_device(getattr(args, "device", "cuda"))
     dtype = _torch_dtype(args.dtype)
-    cfg = sd_preset(os.environ.get("LOCO_SD_PRESET") or "sd21-base", dtype=dtype)
+    preset = os.environ.get("LOCO_SD_PRESET") or (
+        "lcm-dreamshaper-v7" if lcm else "sd21-base")
+    cfg = sd_preset(preset, dtype=dtype)
     unet = _load_unet(cfg, args.checkpoint_path, device)
     # the VAE follows the compute dtype, as the JAX bundle's does
     vae_cfg = VAEConfig(sample_size=cfg.sample_size * 8, dtype=dtype)
@@ -111,7 +117,68 @@ def load_sd_bundle(args, lcm: bool = False) -> dict:
     return sd_bundle(unet, enc, dec, prompt_encoder)
 
 
-def load_if_bundle(args):
-    raise NotImplementedError(
-        "the DeepFloyd-IF bundle is not ported yet, see ROADMAP.md Queue A item 12 "
-        "(DeepFloyd-IF)")
+def _load_if_model(path: str, dtype: torch.dtype, device: torch.device,
+                   stage2: bool = False):
+    """An IFUNet on `device` from a diffusers checkpoint (the geometry
+    inferred from its shapes: presets never gate loading), or the tiny
+    config with seeded random weights when no path is given (enough to
+    drive the engine)."""
+    from loco_edit_tpu_torch.models.ifm import (IFUNet, convert_if_state_dict,
+                                                infer_if_config, tiny_if_config)
+
+    if path:
+        if not path.endswith(TORCH_CKPT):
+            raise ValueError(f"unsupported IF checkpoint format: {path}")
+        from loco_edit_tpu_torch.models.adm.convert import load_torch_checkpoint
+
+        sd = load_torch_checkpoint(path)
+        cfg = infer_if_config(sd, dtype=dtype)
+        state = convert_if_state_dict(sd, cfg)
+        del sd
+        with torch.device(device):
+            model = IFUNet(cfg)
+        model.load_state_dict(state)
+    else:
+        cfg = tiny_if_config(stage2=stage2, dtype=dtype)
+        with torch.device(device):
+            model = IFUNet(cfg)
+        model.init_random_(torch.Generator(device).manual_seed(3 if stage2 else 0))
+    return model.requires_grad_(False).eval()
+
+
+def load_if_bundle(args) -> dict:
+    """DeepFloyd-IF on args.device: the stage-1 U-Net from
+    --checkpoint_path, the T5 encoder from --text_encoder_path (else the
+    fake encoder, as wide as the U-Net's encoder_hid_dim), and the stage-2
+    upscaler sampler from --stage2_checkpoint_path (the reference pairs
+    IF-I-M with IF-II-L)."""
+    from loco_edit_tpu_torch.core.rng import RngStream
+    from loco_edit_tpu_torch.pipelines.superres import SuperResSampler
+
+    device = resolve_device(getattr(args, "device", "cuda"))
+    dtype = _torch_dtype(args.dtype)
+    model = _load_if_model(args.checkpoint_path, dtype, device)
+    cfg = model.cfg
+    path = getattr(args, "text_encoder_path", "")
+    prompt_encoder = (t5_prompt_encoder(path, device=device) if path
+                      else fake_prompt_encoder(cfg.encoder_hid_dim, device=device))
+    bundle = {
+        "unet_apply": lambda x, t, c: model(x, t, c),
+        "prompt_encoder": prompt_encoder,
+        "sample_shape": (cfg.sample_size, cfg.sample_size, 3),
+        "superres": None,
+        "models": {"unet": model},
+    }
+    s2_path = getattr(args, "stage2_checkpoint_path", "")
+    if s2_path:
+        m2 = _load_if_model(s2_path, dtype, device, stage2=True)
+        bundle["superres"] = SuperResSampler(
+            lambda x, t, c, aug_t: m2(x, t, c, aug_t), prompt_encoder,
+            out_size=m2.cfg.sample_size,
+            # stage-2 CFG is its own knob: the reference upscales at the
+            # diffusers IFSuperResolutionPipeline default (4.0)
+            guidance_scale=getattr(args, "stage2_guidance_scale", 4.0),
+            aug_level=250,  # diffusers IFSuperResolutionPipeline default
+            rng=RngStream.from_seed(args.seed), device=device)
+        bundle["models"]["stage2"] = m2
+    return bundle

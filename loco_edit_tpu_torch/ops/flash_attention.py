@@ -18,13 +18,32 @@ tensors. The `vmap` rule folds the vmapped dimension into the batch.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from loco_edit_tpu_torch.ops import _cuda
 
-HEAD_DIMS = (16, 32, 64, 128, 256, 512)
-SLICE = 128          # output columns per block of the kernel (wider D is cut)
+# 40, 80 and 160 are the SD 1.5 / LCM U-Net's 8-head splits of 320, 640, 1280
+HEAD_DIMS = (16, 32, 40, 64, 80, 128, 160, 256, 512)
+SLICE = 128          # most output columns per block of the kernel (wider D is cut)
+
+
+class AttnGeometry(NamedTuple):
+    """csrc/flash_attention.cu's tiling of head dim d (its `Geo<D>`)."""
+    slices: int       # blocks across the output columns, one slice each
+    dv: int           # output columns per slice: d / slices, at most SLICE
+    kd: int           # depth of Q K^T on the bf16 route: d rounded up to 16
+    block_k: int      # keys per shared-memory tile
+
+
+def kernel_geometry(d: int) -> AttnGeometry:
+    """The tiling the kernel uses at head dim d: equal output slices of at
+    most SLICE columns (160 = 2 x 80), a zero-padded last 16-deep k-step
+    on the tensor cores where d is not a multiple of 16 (40 -> 48), 32-key
+    tiles above SLICE."""
+    slices = -(-d // SLICE)
+    return AttnGeometry(slices, d // slices, -(-d // 16) * 16, 32 if d > SLICE else 64)
 
 
 def _scale(d: int) -> float:
@@ -52,9 +71,14 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor,
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel route a dtype and head dim take: bf16 runs on the tensor
     cores, f32 on FMA loops (TF32 would not hold the f32 checks); a head dim
-    above SLICE is cut into d / SLICE output-column slices, one block each."""
+    above SLICE is cut into output-column slices, one block each; on the
+    tensor cores a head dim that is not a multiple of 16 takes a zero-padded
+    last k-step."""
+    geo = kernel_geometry(d)
     name = {torch.bfloat16: "bf16-tensor-core", torch.float32: "f32-fma"}[dtype]
-    return name if d <= SLICE else f"{name}-{d // SLICE}-slices"
+    if dtype == torch.bfloat16 and geo.kd != d:
+        name += f"-k{geo.kd}"
+    return name if geo.slices == 1 else f"{name}-{geo.slices}x{geo.dv}-slices"
 
 
 def _kernel_layout(t: torch.Tensor) -> bool:

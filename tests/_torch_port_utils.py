@@ -121,3 +121,55 @@ def sd_tiny_pairs():
         m.requires_grad_(False).eval()
     return dict(junet=junet, pu=pu, jdec=jdec, pd=pd, jenc=jenc, pe=pe,
                 unet=unet, dec=dec, enc=enc)
+
+
+def lcm_tiny_pair():
+    """The tiny LCM U-Net (sd_preset("tiny") with time_cond_proj_dim=16, as
+    tests/test_pipeline_lcm.py builds it) in both packages with the same
+    weights: lecun-normal draws in the Flax shapes (seed 5) + 0.01, carried
+    by the SD carry (cond_proj included). Returns (jax_model, jax_params,
+    torch_model)."""
+    import dataclasses
+
+    from loco_edit_tpu.models.sd import SDUNet as JUNet
+    from loco_edit_tpu.models.sd import sd_preset as jsd_preset
+    from loco_edit_tpu_torch.models.sd import SDUNet, sd_preset
+    from loco_edit_tpu_torch.models.sd.convert import sd_params_from_flax
+
+    jcfg = dataclasses.replace(jsd_preset("tiny"), time_cond_proj_dim=16)
+    junet = JUNet(jcfg)
+    pu = _lecun_params(junet, 5, jnp.zeros((1, 8, 8, 4)), 500.0,
+                       jnp.zeros((1, 7, jcfg.cross_attention_dim)), 6.5)
+    pu = jax.tree.map(lambda p: p + 0.01, pu)
+    cfg = dataclasses.replace(sd_preset("tiny"), time_cond_proj_dim=16)
+    unet = SDUNet(cfg)
+    unet.load_state_dict(sd_params_from_flax(flat_params(pu), cfg))
+    return junet, pu, unet.requires_grad_(False).eval()
+
+
+def if_tiny_pair(stage2: bool = False, dtype=None):
+    """The tiny IF U-Net (tiny_if_config, stage 1 at 16 px or stage 2 at
+    32 px) in both packages with the same weights: lecun-normal draws in
+    the Flax shapes (seed 6 or 7), the pool's positional embedding normal,
+    + 0.01 each, carried by if_params_from_flax. dtype (torch) builds the
+    port's module in that dtype from the same weights. Returns (jax_model,
+    jax_params, torch_model)."""
+    from loco_edit_tpu.models.ifm import IFUNet as JUNet
+    from loco_edit_tpu.models.ifm import tiny_if_config as jtiny
+    from loco_edit_tpu_torch.models.ifm import IFUNet, if_params_from_flax, tiny_if_config
+
+    jcfg = jtiny(stage2=stage2)
+    junet = JUNet(jcfg)
+    s = jcfg.sample_size
+    ex = (jnp.zeros((1, s, s, jcfg.in_channels)), 500.0,
+          jnp.zeros((1, 7, jcfg.encoder_hid_dim)))
+    params = _lecun_params(junet, 7 if stage2 else 6, *ex)
+    pe = ("params", "add_embedding", "positional_embedding")
+    flat = flax.traverse_util.flatten_dict(params)
+    flat[pe] = jnp.asarray(np.random.default_rng(8).normal(size=flat[pe].shape)
+                           * jcfg.encoder_hid_dim ** -0.5, jnp.float32)
+    params = jax.tree.map(lambda p: p + 0.01, flax.traverse_util.unflatten_dict(flat))
+    cfg = tiny_if_config(stage2=stage2, **({} if dtype is None else {"dtype": dtype}))
+    unet = IFUNet(cfg)
+    unet.load_state_dict(if_params_from_flax(flat_params(params), cfg))
+    return junet, params, unet.requires_grad_(False).eval()

@@ -13,6 +13,8 @@ from loco_edit_tpu_torch.ops.flash_attention import (AttentionFn, attention_plai
 from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_cuda,
                                                group_norm_plain)
 from _torch_ddpm_shapes import DDPM_ATTN_SHAPES, DDPM_GN_EPS, DDPM_GN_SHAPES
+from _torch_if_shapes import (IF_CONTEXT, IF_I_M_ATTN_SHAPES, IF_I_M_GN_SHAPES,
+                              LCM_ATTN_SHAPES, LCM_CONTEXT)
 from _torch_p2_shapes import P2_GN_SHAPES
 from _torch_sd_shapes import (SD_CONTEXT, SD_DEC_GN_SHAPES, SD_ENC_GN_SHAPES,
                               SD_UNET_ATTN_SHAPES, SD_UNET_GN_SHAPES,
@@ -350,6 +352,36 @@ def test_attention_cross_on_head_split_views(dtype):
     assert min(attn_mutant_errs(q, k, v)) > tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("d,nq", [(40, 4096), (40, 100), (80, 1024), (80, 65),
+                                  (160, 256), (160, 64), (160, 33)])
+def test_attention_head_dims_40_80_160(d, nq, cross, dtype):
+    """The SD 1.5 / LCM U-Net's head dims (8 heads of 320, 640, 1280) on
+    both routes, N_kv = N_q and N_kv = 77, on head-split views of packed
+    projections as the U-Net makes them: within the plain version's
+    tolerance, every output column written (D = 160: two slices of 80), and
+    a kernel that skipped the last key tile or scaled the logits by 1.03
+    would miss it."""
+    g = _card()
+    nkv = 77 if cross else nq
+    x = torch.randn(2, nq, 8 * d, device="cuda", generator=g).to(dtype)
+    kv = torch.randn(2, nkv, 16 * d, device="cuda", generator=g).to(dtype)
+    q = x.reshape(2, nq, 8, d).transpose(1, 2)
+    k, v = (t.reshape(2, nkv, 8, d).transpose(1, 2) for t in kv.split(8 * d, -1))
+    copies = AttentionFn.layout_copies
+    got = AttentionFn.apply(q, k, v)
+    torch.cuda.synchronize()
+    assert AttentionFn.layout_copies == copies and got.shape == q.shape
+    ref = attention_plain(q, k, v).float()
+    tol = attn_tol(ref, dtype, cap=float("inf"))
+    assert torch.isfinite(got).all()
+    assert (got.float() - ref).abs().max().item() <= tol
+    tile = 64 if d <= 128 else 32
+    if nkv > tile:
+        assert min(attn_mutant_errs(q, k, v, tile)) > tol
+
+
 @pytest.mark.parametrize("which", ["unet", "decoder", "encoder"])
 def test_sd_bf16_forward_launch_counts(which):
     """One full-width SD 2.1-base forward in bf16 on the card: finite output
@@ -380,6 +412,83 @@ def test_sd_bf16_forward_launch_counts(which):
     with torch.no_grad():
         out = m(*args)
     out = out[0] if isinstance(out, tuple) else out
+    torch.cuda.synchronize()
+    assert out.shape == want and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert group_norm_cuda.launches - gn0 == sum(shapes[0].values())
+    assert flash_attention_cuda.launches - at0 == sum(shapes[1].values())
+
+
+# -- DeepFloyd IF-I-M and LCM Dreamshaper v7 ---------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(IF_I_M_GN_SHAPES))
+def test_groupnorm_kernel_at_every_if_shape(shape, dtype):
+    """GN at every IF-I-M (C, H, W) at the CFG batch 2, the norm_cross over
+    the 77 text states (C x 1 x 77) included; the same bits on two
+    launches."""
+    x, s, bias = _gn_inputs(_card(), (2, *shape[:3]), dtype)
+    got = group_norm_cuda(x, s, bias, eps=shape[3])
+    torch.cuda.synchronize()
+    ref = group_norm_plain(x, s, bias, eps=shape[3])
+    assert (got.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+    assert torch.equal(got, group_norm_cuda(x, s, bias, eps=shape[3]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(IF_I_M_ATTN_SHAPES))
+def test_attention_at_every_if_shape(shape, dtype):
+    """IF-I-M's added-KV attention at the CFG batch 2 (N_kv = 77 text keys
+    + N_q image keys, ragged last key tiles of 13) on head-split views of
+    the concatenated keys, as IFAttention makes them."""
+    g = _card()
+    heads, nq, nkv, d = shape
+    c = heads * d
+    x = torch.randn(2, nq, 3 * c, device="cuda", generator=g).to(dtype)
+    text = torch.randn(2, nkv - nq, 2 * c, device="cuda", generator=g).to(dtype)
+    q, k, v = x.split(c, -1)
+    k = torch.cat([text[..., :c], k], 1)
+    v = torch.cat([text[..., c:], v], 1)
+    split = lambda t: t.reshape(2, t.shape[1], heads, d).transpose(1, 2)  # noqa: E731
+    q, k, v = split(q), split(k), split(v)
+    copies = AttentionFn.layout_copies
+    got = AttentionFn.apply(q, k, v)
+    torch.cuda.synchronize()
+    assert AttentionFn.layout_copies == copies and got.shape == q.shape
+    ref = attention_plain(q, k, v).float()
+    tol = attn_tol(ref, dtype, cap=float("inf"))
+    assert (got.float() - ref).abs().max().item() <= tol
+    assert min(attn_mutant_errs(q, k, v)) > tol
+
+
+@pytest.mark.parametrize("which", ["lcm", "if"])
+def test_lcm_and_if_bf16_forward_launch_counts(which):
+    """One full-width bf16 forward on the card, LCM Dreamshaper v7 at batch
+    1 (with its guidance embedding) and IF-I-M at the CFG batch 2: finite
+    output of the expected shape, and the launch counters read exactly the
+    calls of tests/_torch_if_shapes.py (61 GN + 32 attention; 117 + 22)."""
+    _card()
+    from loco_edit_tpu_torch.models.ifm import IFUNet, if_preset
+    from loco_edit_tpu_torch.models.sd import SDUNet, sd_preset
+    from _torch_sd_shapes import SD_UNET_GN_SHAPES
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    with torch.device("cuda"):
+        if which == "lcm":
+            m = SDUNet(sd_preset("lcm-dreamshaper-v7", dtype=torch.bfloat16))
+            args = (torch.randn(1, 64, 64, 4, device="cuda", generator=gen), 759.0,
+                    0.2 * torch.randn(1, *LCM_CONTEXT, device="cuda", generator=gen),
+                    torch.full((1,), 6.5, device="cuda"))
+            shapes, want = (SD_UNET_GN_SHAPES, LCM_ATTN_SHAPES), (1, 64, 64, 4)
+        else:
+            m = IFUNet(if_preset("IF-I-M", dtype=torch.bfloat16))
+            args = (torch.randn(2, 64, 64, 3, device="cuda", generator=gen), 742.5,
+                    0.2 * torch.randn(2, *IF_CONTEXT, device="cuda", generator=gen))
+            shapes, want = (IF_I_M_GN_SHAPES, IF_I_M_ATTN_SHAPES), (2, 64, 64, 6)
+    m.init_random_(gen).requires_grad_(False)
+    gn0, at0 = group_norm_cuda.launches, flash_attention_cuda.launches
+    with torch.no_grad():
+        out = m(*args)
     torch.cuda.synchronize()
     assert out.shape == want and out.dtype == torch.float32
     assert torch.isfinite(out).all()

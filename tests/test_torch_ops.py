@@ -14,8 +14,9 @@ from jax.experimental import pallas as pl
 
 from loco_edit_tpu.ops.attention import _lean_attention, _xla_attention
 from loco_edit_tpu.ops.norms import group_norm_f32 as jax_gn
-from loco_edit_tpu_torch.ops.flash_attention import (SLICE, AttentionFn, _scale,
-                                                     attention_plain)
+from loco_edit_tpu_torch.ops.flash_attention import (SLICE, AttentionFn, AttnGeometry,
+                                                     _kernel_layout, _scale,
+                                                     attention_plain, kernel_geometry)
 from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_plain,
                                                launch_geometry)
 from loco_edit_tpu_torch.ops.norms import group_norm_f32
@@ -234,15 +235,16 @@ def test_p2_call_shapes_match_the_model():
     assert dict(attn) == P2_ATTN_SHAPES and sum(attn.values()) == 4
 
 
-def _tensor_core_attention_model(q, k, v, block=64):
+def _tensor_core_attention_model(q, k, v, block=64, scale=None):
     """Plain-torch model of csrc/flash_attention.cu's bf16 route: q * d^-1/4
     and k * d^-1/4 rounded to bf16, f32 logits and online softmax over
     `block`-key tiles, unnormalized P rounded to bf16 before P V with f32
     accumulation, one f32 division by the row sum, output rounded to bf16.
     k and v may hold another number of keys than q has queries (the last
     key tile is then ragged: its missing keys add nothing); v may be a
-    column slice of the values (the wide-head route)."""
-    scale = _scale(q.shape[-1])
+    column slice of the values (the wide-head route). `scale` defaults to
+    that of q's head dim (a caller that pads or cuts the dims passes it)."""
+    scale = _scale(q.shape[-1]) if scale is None else scale
     qs, ks = (q * scale).float(), (k * scale).float()
     m = torch.full(q.shape[:-1] + (1,), -math.inf)
     l = torch.zeros_like(m)
@@ -428,3 +430,89 @@ def test_groupnorm_launch_geometry_at_sd_shapes(chw):
             assert 2 * max(geo.rows * c, 32 * 8) * 4 <= 48 * 1024
     assert launch_geometry(1, 2560, 64, 4).nvec == 2
     assert launch_geometry(1, 1920, 256, 4).nvec == 1
+
+
+# -- head dims 40, 80, 160 (the SD 1.5 / LCM U-Net: 8 heads of 320, 640, 1280) --
+
+def _naive_geometry(d):
+    """The tiling the kernel had before it took these dims: D / 16 k-steps
+    and D / min(D, 128) slices of min(D, 128) columns."""
+    dv = min(d, SLICE)
+    return AttnGeometry(d // dv, dv, d // 16 * 16, 32 if d > SLICE else 64)
+
+
+def _tiled_attention_model(q, k, v, geo):
+    """The bf16 route under a tiling: Q K^T over geo.kd dims (q and k
+    zero-padded past D, or cut short of it), one block of the
+    tensor-core model per output slice of geo.dv columns; columns no
+    slice covers stay 0."""
+    d = q.shape[-1]
+    if geo.kd >= d:
+        pad = lambda t: torch.cat([t, t.new_zeros(*t.shape[:-1], geo.kd - d)], -1)  # noqa: E731
+        qk = pad(q), pad(k)
+    else:
+        qk = q[..., :geo.kd], k[..., :geo.kd]
+    out = torch.zeros(q.shape, dtype=torch.bfloat16)
+    for c in range(0, geo.slices * geo.dv, geo.dv):
+        out[..., c:c + geo.dv] = _tensor_core_attention_model(
+            *qk, v[..., c:c + geo.dv], block=geo.block_k, scale=_scale(d))
+    return out
+
+
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 128, 160, 256, 512])
+def test_attention_kernel_geometry_covers_every_head_dim(d):
+    """csrc/flash_attention.cu's Geo<D> (mirrored by kernel_geometry): equal
+    slices of whole 8-wide n-tiles covering D exactly, at most 128 columns;
+    k-steps covering D with at most one zero 16-byte chunk of padding; row
+    strides of an odd number of 16-byte chunks (the 8 rows an ldmatrix reads
+    in distinct banks); shared memory under the 227 KB opt-in limit."""
+    geo = kernel_geometry(d)
+    assert geo.slices * geo.dv == d and geo.dv % 8 == 0 and geo.dv <= SLICE
+    assert geo.kd % 16 == 0 and 0 <= geo.kd - d <= 8
+    r16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    q_stride, v_stride = geo.kd + 8, r16(geo.dv) + 8
+    assert (q_stride * 2 // 16) % 2 == 1 and (v_stride * 2 // 16) % 2 == 1
+    smem = (64 * q_stride + 2 * geo.block_k * q_stride + 2 * geo.block_k * v_stride) * 2
+    assert smem <= 232448
+    expected = {40: (1, 40, 48, 64), 80: (1, 80, 80, 64), 160: (2, 80, 160, 32),
+                256: (2, 128, 256, 32), 512: (4, 128, 512, 32)}
+    assert tuple(geo) == expected.get(d, (1, d, d, 64))
+
+
+@pytest.mark.parametrize("sigma", [1.0, 2.0])
+@pytest.mark.parametrize("nkv", [None, 77])
+@pytest.mark.parametrize("d,nq", [(40, 256), (80, 130), (160, 96)])
+def test_head_dims_40_80_160_rounding_and_geometry(d, nq, nkv, sigma):
+    """At the LCM U-Net's head dims, self- (N_kv = N_q) and cross-attention
+    (N_kv = 77): the kernel's tiling (D = 40: a zero-padded third k-step of
+    48; D = 160: two slices of 80 columns) stays within the bf16 tolerance
+    the card holds the kernel to; the naive tiling (D / 16 k-steps: 8 of 40
+    dims dropped from the logits; D / 128 slices of 128: 32 of 160 output
+    columns never written) misses it."""
+    g = np.random.default_rng(25 + d)
+    nkv = nq if nkv is None else nkv
+    q = torch.from_numpy(g.normal(size=(2, 2, nq, d)).astype(np.float32)).bfloat16()
+    k, v = (torch.from_numpy(g.normal(size=(2, 2, nkv, d)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    q, k = (q * sigma).bfloat16(), (k * sigma).bfloat16()
+    ref = attention_plain(q, k, v)
+    tol = _bf16_attn_tol(ref, cap=float("inf"))
+    got = _tiled_attention_model(q, k, v, kernel_geometry(d))
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    naive = _naive_geometry(d)
+    if naive != kernel_geometry(d):
+        off = _tiled_attention_model(q, k, v, naive)
+        assert (off.float() - ref.float()).abs().max().item() > tol
+
+
+@pytest.mark.parametrize("width,d", [(320, 40), (640, 80), (1280, 160)])
+def test_lcm_head_split_views_meet_the_bf16_copy_rules(width, d):
+    """The SD 1.5 / LCM head split, (B, N, 8 * D) -> (B, 8, N, D) views,
+    meets the bf16 route's 16-byte cp.async rules as it is (head dim of
+    stride 1, strides multiples of 8 elements, 16-byte aligned heads), so
+    AttentionFn hands it to the kernel without a copy."""
+    x = torch.zeros(2, 77, width, dtype=torch.bfloat16)
+    heads = x.reshape(2, 77, 8, d).transpose(1, 2)
+    assert _kernel_layout(heads)
+    for h in range(8):
+        assert heads[:, h].data_ptr() % 16 == 0
