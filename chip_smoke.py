@@ -61,11 +61,16 @@ Phases (any failure raises; nothing is caught and skipped):
      the guidance embedding cond_proj; seeded random weights, the 768-wide
      fake prompt encoder). Phase 2's checks at every call shape of one
      U-Net forward at batch 1 (generate, the basis primal, the text
-     direction) and 3 (the strip); the f32 eps against the CPU and the bf16
-     eps against the f32 CPU. Then the LCM edit through the CLI, bf16, at
-     the reference script's settings (4 steps, edit_t_idx 2, guidance 7.5,
-     non-semantic rank 5+5 dual basis through the 512 px decoder, null-space
-     projection, x-space guidance 0.4 x 24, vis_num 1) over a box mask.npz;
+     direction) and 3 (the strip); the f32 eps against the CPU, with the
+     relative error of every top-level block's output and of the first D =
+     40 transformer's submodules (forward hooks), and the bf16 eps against
+     the f32 CPU. Then the LCM edit through the CLI, bf16, at the reference
+     script's settings (4 steps, edit_t_idx 2, guidance 7.5, non-semantic
+     rank 5+5 dual basis through the 512 px decoder, null-space projection,
+     x-space guidance 0.4 x 24, vis_num 1), its mask from a first
+     --sampling_mode true run of the same command with --mask_backend flax
+     (the generated 512 px image through SAM ViT-L with seeded weights;
+     (n, 512, 512, 3) masks and overlays), the edit reading --mask_index 0;
      cut, printed with the phase: a fixed 5 basis sweeps. Then
      delta_zt_via_grad from Python. Launches: 61 GN + 32 attention per U-Net
      forward, 30 + 1 per decode; forwards what the steps predict.
@@ -79,15 +84,35 @@ Phases (any failure raises; nothing is caught and skipped):
      edit_t 0.75, (for-edit)-direct, rank 1 + null 5) with the DiffEdit
      mask, bf16, and the IF-II-M upscale of its strip. Launches: 117 GN + 22
      attention per IF-I-M forward, 89 + 8 per IF-II-M forward.
+ 11. SAM at facebook/sam-vit-large's geometry (seeded weights of HF's init
+     distribution): the parameter count; the f32 encoder embedding and one
+     64-point decode batch (logits, IoU) on the card against the CPU; the
+     automatic masks of a seeded 512 px image, timed (encode, decode a
+     batch, host filters and NMS, masks kept). SAM reaches no kernel.
+ 12. scripts/main_hf_null_space_projection_FFHQ_P2.sh through the CLI, f32,
+     with every flag it passes (100/100 steps, edit_t 0.2, rank 3 + null 5,
+     x-space guidance 12 x 1, vis_num 2) plus --device cuda, a seeded
+     one-image FFHQ folder, --result_folder and --mask_backend flax: the
+     --sampling_mode true run (SAM masks + overlays, exit 0), then the edit
+     with --mask_index 0. Launches: 65 GN + 4 attention per P2 forward (the
+     f32 routes); forwards what the steps predict; unit-norm finite
+     directions, strips and artifacts.
+
+TF32: the kernel-vs-plain and card-vs-CPU checks (phases 2, 3 and those of
+7, 9, 10 and 11) run with TF32 off for matmuls and convolutions, and phases
+3, 7 and 11 also print their errors with TF32 convolutions (PyTorch's
+default); the CLI and edit phases run under the backend flags the port
+itself sets (its f32 entry points turn TF32 off: core/device.py).
 
 Launch counts are set to 0 just before each main path (phases 4, 6 edit,
-6 group, 8 edit, 8 delta, 8 invert, 9 edit, 9 delta, 10 edit) and read just
-after. The last three lines of standard output are the card's name and
+6 group, 8 edit, 8 delta, 8 invert, 9 edit, 9 delta, 10 edit, 12 edit) and
+read just after. The last three lines of standard output are the card's name and
 power limit (nvidia-smi), the kernels' JSON line and the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -122,6 +147,9 @@ FWD_RTOL = 1e-3
 # presets; tests/test_torch_if_models.py holds both packages to them)
 LCM_UNET_PARAMS = 859_602_884
 IF_I_M_PARAMS, IF_II_M_PARAMS = 426_944_518, 412_539_270
+# SAM at facebook/sam-vit-large's geometry: encoder and decoder parameters
+# (jax.eval_shape on the JAX presets; tests/test_torch_sam.py)
+SAM_ENCODER_PARAMS, SAM_DECODER_PARAMS = 308_278_272, 4_064_816
 # full-width bf16 SD eps and decode(PMP(z)) on the card against the f32 CPU:
 # relative L2 error (bf16 keeps 8 significant bits; ~1e-2 through the tiny
 # networks on the CPU, tests/test_torch_sd_models.py)
@@ -134,6 +162,27 @@ def log(*a):
 
 def fail(msg: str):
     raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def tf32_convs(allowed: bool):
+    """cuDNN convolutions with TF32 allowed or not, cuBLAS matmuls in full
+    f32 either way (PyTorch's default for both is convolutions in TF32,
+    matmuls not), the flags restored after. The kernel-vs-plain and
+    card-vs-CPU checks run with it off: their references compute in full
+    f32."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
 def cuda_ms(fn, budget_ms: float = 30.0) -> float:
@@ -468,6 +517,9 @@ def summarize(rows, name, source, replaces, launches):
 
 
 def phase_forward_vs_cpu(den, tag):
+    """The full-width f32 eps and one J.v of the PMP: the card against the
+    CPU, on the card once in full f32 (held to FWD_RTOL) and once with TF32
+    convolutions (PyTorch's default; printed)."""
     from loco_edit_tpu_torch.diffusion import LinspaceDDIM
     from loco_edit_tpu_torch.editing.pullback import pmp_pullback_fn
 
@@ -484,29 +536,36 @@ def phase_forward_vs_cpu(den, tag):
     x = torch.from_numpy(rng.normal(size=(1, 256, 256, 3)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(1, 256, 256, 3)).astype(np.float32))
     v = v / v.norm()
-    out = {}
-    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+
+    def run(m, dev):
         t0 = time.perf_counter()
         with torch.no_grad():
             eps = m(x.to(dev), t)
         f = pmp_pullback_fn(lambda z, tt: m(z, tt), ab, t)
         jv = torch.func.jvp(f, (x.to(dev),), (v.to(dev),))[1]
-        out[dev] = (eps.cpu(), jv.cpu(), time.perf_counter() - t0)
+        return eps.cpu(), jv.cpu(), time.perf_counter() - t0
+
+    cpu = run(cpu_model, "cpu")
     res = {}
-    for i, name in ((0, "eps"), (1, "jv")):
-        a, b = out["cuda"][i], out["cpu"][i]
-        if not (torch.isfinite(a).all() and a.shape == (1, 256, 256, 3)):
-            fail(f"full-width {tag} {name} on the card is not finite of shape (1,256,256,3)")
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        res[f"{name}_rel_err"] = rel
-        res[f"{name}_max_abs"] = b.abs().max().item()
-        if not rel <= FWD_RTOL:
-            fail(f"full-width f32 {tag} {name}: card vs CPU relative error {rel:.2e} "
-                 f"> {FWD_RTOL:.0e}")
-    log(f"[3 forward] {tag} f32 t={t:.2f}: eps rel err {res['eps_rel_err']:.2e} "
-        f"(max |eps| {res['eps_max_abs']:.3f}), J.v rel err {res['jv_rel_err']:.2e} "
-        f"(max |Jv| {res['jv_max_abs']:.3f}), tol {FWD_RTOL:.0e}; "
-        f"forward+jvp card {out['cuda'][2]:.2f} s, CPU {out['cpu'][2]:.2f} s")
+    for allowed in (False, True):
+        with tf32_convs(allowed):
+            out = run(model, "cuda")
+        for i, name in ((0, "eps"), (1, "jv")):
+            if not (torch.isfinite(out[i]).all() and out[i].shape == (1, 256, 256, 3)):
+                fail(f"full-width {tag} {name} on the card is not finite of shape (1,256,256,3)")
+            res[("tf32" if allowed else "f32", name)] = rel_err(out[i], cpu[i])
+        if not allowed:
+            card_s = out[2]
+    log(f"[3 forward] {tag} f32 t={t:.2f}: eps rel err {res[('f32', 'eps')]:.2e} "
+        f"(max |eps| {cpu[0].abs().max().item():.3f}), J.v rel err {res[('f32', 'jv')]:.2e} "
+        f"(max |Jv| {cpu[1].abs().max().item():.3f}), tol {FWD_RTOL:.0e}; with TF32 "
+        f"convolutions (PyTorch's default): eps rel err {res[('tf32', 'eps')]:.2e}, J.v "
+        f"rel err {res[('tf32', 'jv')]:.2e}; forward+jvp card {card_s:.2f} s, CPU {cpu[2]:.2f} s")
+    for name in ("eps", "jv"):
+        if not res[("f32", name)] <= FWD_RTOL:
+            fail(f"full-width f32 {tag} {name}: card vs CPU relative error "
+                 f"{res[('f32', name)]:.2e} > {FWD_RTOL:.0e}")
+    return res
 
 
 def phase_flagship(den, work_dir):
@@ -767,33 +826,39 @@ def phase_sd_forward_vs_cpu(models):
     v = torch.from_numpy(rng.normal(size=(1, 64, 64, 4)).astype(np.float32))
     v = v / v.norm()
     out = {}
-    for dev, (unet, dec) in (("cuda", (models["unet"], models["decoder"])),
-                             ("cpu", (cpu["unet"], cpu["decoder"]))):
+    for key, dev, (unet, dec) in (("cuda", "cuda", (models["unet"], models["decoder"])),
+                                  ("cuda-tf32", "cuda", (models["unet"], models["decoder"])),
+                                  ("cpu", "cpu", (cpu["unet"], cpu["decoder"]))):
         zd, cd = z.to(dev), ctx.to(dev)
         t0 = time.perf_counter()
-        with torch.no_grad():
-            eps = unet(zd, t, cd)
+        with tf32_convs(key == "cuda-tf32"):
+            with torch.no_grad():
+                eps = unet(zd, t, cd)
 
-        def f(zz):
-            e = unet(zz, t, cd)
-            return dec((zz - e * np.sqrt(1.0 - ab)) / np.sqrt(ab) / sf)
+            def f(zz):
+                e = unet(zz, t, cd)
+                return dec((zz - e * np.sqrt(1.0 - ab)) / np.sqrt(ab) / sf)
 
-        image, jv = torch.func.jvp(f, (zd,), (v.to(dev),))
-        out[dev] = (eps.cpu(), jv.cpu(), time.perf_counter() - t0, image.cpu())
+            image, jv = torch.func.jvp(f, (zd,), (v.to(dev),))
+        out[key] = (eps.cpu(), jv.cpu(), time.perf_counter() - t0, image.cpu())
     res = {}
     for i, name, shape in ((0, "eps", (1, 64, 64, 4)), (1, "jv", (1, 512, 512, 3))):
-        a, b = out["cuda"][i], out["cpu"][i]
-        if not (torch.isfinite(a).all() and tuple(a.shape) == shape):
-            fail(f"full-width SD {name} on the card is not finite of shape {shape}")
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        res[name] = (rel, b.abs().max().item())
-        if not rel <= FWD_RTOL:
-            fail(f"full-width f32 SD {name}: card vs CPU relative error {rel:.2e} "
+        b = out["cpu"][i]
+        for key in ("cuda", "cuda-tf32"):
+            a = out[key][i]
+            if not (torch.isfinite(a).all() and tuple(a.shape) == shape):
+                fail(f"full-width SD {name} on the card is not finite of shape {shape}")
+        res[name] = (rel_err(out["cuda"][i], b), b.abs().max().item(),
+                     rel_err(out["cuda-tf32"][i], b))
+        if not res[name][0] <= FWD_RTOL:
+            fail(f"full-width f32 SD {name}: card vs CPU relative error {res[name][0]:.2e} "
                  f"> {FWD_RTOL:.0e}")
     log(f"[3 forward] SD 2.1-base f32 t={t:.2f}: eps rel err {res['eps'][0]:.2e} (max "
         f"|eps| {res['eps'][1]:.3f}), decode(PMP) J.v rel err {res['jv'][0]:.2e} (max "
-        f"|Jv| {res['jv'][1]:.3f}), tol {FWD_RTOL:.0e}; forward+jvp card "
-        f"{out['cuda'][2]:.2f} s, CPU {out['cpu'][2]:.2f} s")
+        f"|Jv| {res['jv'][1]:.3f}), tol {FWD_RTOL:.0e}; with TF32 convolutions "
+        f"(PyTorch's default): eps rel err {res['eps'][2]:.2e}, J.v rel err "
+        f"{res['jv'][2]:.2e}; forward+jvp card {out['cuda'][2]:.2f} s, CPU "
+        f"{out['cpu'][2]:.2f} s")
 
     # the bf16 networks (the edit's dtype) on the same weights, against the
     # f32 CPU: eps and the decoded image of PMP(z)
@@ -951,6 +1016,41 @@ def phase_sd_cli(work_dir, image_px=512):
     return launches, d_launches, i_launches
 
 
+def sam_sampling_run(tag, cli_main, argv, px):
+    """The first phase of the SAM protocol: argv + --sampling_mode true must
+    make the image, cache its SAM masks ((n, px, px, 3) bool) with an
+    overlay each and exit 0 (the only SystemExit taken). Returns the masks."""
+    import glob
+
+    log(f"[{tag}] sampling run: python -m loco_edit_tpu_torch.cli.main {' '.join(argv)} "
+        "--sampling_mode true")
+    t0 = time.perf_counter()
+    try:
+        cli_main(argv + ["--sampling_mode", "true"])
+    except SystemExit as e:
+        if e.code != 0:
+            raise
+    else:
+        fail(f"{tag}: the --sampling_mode run did not exit")
+    total_s = time.perf_counter() - t0
+    root = argv[argv.index("--result_folder") + 1]
+    found = glob.glob(os.path.join(root, "**", "mask", "mask.npz"), recursive=True)
+    if len(found) != 1:
+        fail(f"{tag}: the --sampling_mode run cached {found}")
+    with np.load(found[0]) as z:
+        masks = z["masks"]
+    overlays = sorted(f for f in os.listdir(os.path.dirname(found[0])) if f.endswith(".png"))
+    checks = {"masks": masks.ndim == 4 and masks.shape[1:] == (px, px, 3)
+              and masks.dtype == bool and len(masks) >= 1,
+              "overlays": overlays == [f"mask_{i:03d}.png" for i in range(len(masks))]}
+    log(f"[{tag}] sampling run: {total_s:.2f} s (model and SAM build included); "
+        f"{len(masks)} masks {tuple(masks.shape)}, areas "
+        f"{[round(float(m[..., 0].mean()), 3) for m in masks]}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"{tag}: --sampling_mode checks failed: {checks}")
+    return masks
+
+
 LCM_CUTS = "5 basis sweeps (min_iter = max_iter = 5; the reference: 10-50 until 1e-3)"
 LCM_W = 6.5     # the guidance embedding's w = guidance_scale - 1 at guidance 7.5
 
@@ -968,20 +1068,29 @@ def load_lcm_models(dtype: str):
     return load_sd_bundle(args, lcm=True)["models"]
 
 
-def unet_vs_cpu(tag, unet, args, bf16_unet):
+def unet_vs_cpu(tag, unet, args, bf16_unet, stages=()):
     """A full-width f32 U-Net's eps on the card against the same weights on
     the CPU (FWD_RTOL of the largest |eps|), then the bf16 U-Net on the same
-    weights against the f32 CPU (relative L2 within BF16_FWD_RTOL)."""
+    weights against the f32 CPU (relative L2 within BF16_FWD_RTOL). With
+    `stages` (submodule names), the output of each in the same f32 forward
+    is compared too (forward hooks); returns their relative errors."""
     with torch.device("cpu"):
         cpu = type(unet)(unet.cfg)
     cpu.load_state_dict({k: v.cpu() for k, v in unet.state_dict().items()})
     cpu.requires_grad_(False).eval()
-    out = {}
+    out, seen, hooks = {}, {"cuda": {}, "cpu": {}}, []
     for dev, m in (("cuda", unet), ("cpu", cpu)):
+        mods = dict(m.named_modules())
+        for name in stages:
+            hooks.append(mods[name].register_forward_hook(
+                lambda mod, a, o, name=name, dev=dev: seen[dev].__setitem__(
+                    name, o.detach().float().cpu())))
         t0 = time.perf_counter()
         with torch.no_grad():
             out[dev] = (m(*(a.to(dev) if isinstance(a, torch.Tensor) else a
                             for a in args)).cpu(), time.perf_counter() - t0)
+    for h in hooks:
+        h.remove()
     a, b = out["cuda"][0], out["cpu"][0]
     if not (torch.isfinite(a).all() and a.shape == b.shape):
         fail(f"full-width f32 {tag} eps on the card is not finite of shape {tuple(b.shape)}")
@@ -1001,6 +1110,7 @@ def unet_vs_cpu(tag, unet, args, bf16_unet):
         fail(f"full-width f32 {tag} eps: card vs CPU relative error {rel:.2e} > {FWD_RTOL:.0e}")
     if not l2 <= BF16_FWD_RTOL:
         fail(f"full-width bf16 {tag} eps: relative L2 error {l2:.2e} > {BF16_FWD_RTOL:.0e}")
+    return {name: rel_err(seen["cuda"][name], seen["cpu"][name]) for name in stages}
 
 
 def bf16_copy(model):
@@ -1022,8 +1132,17 @@ def phase_lcm_kernels_and_forward(models):
     rows = kernel_rows("LCM-UNet", *record_t2i_call_shapes(
         unet, z.cuda(), 759.0, ctx.cuda(), w.cuda()))
     half = bf16_copy(unet)
-    unet_vs_cpu("LCM Dreamshaper v7 (t=759, w=6.5)", unet, (z, 759.0, ctx, w), half)
+    # the f32 gap by stage: every top-level block in forward order, and the
+    # submodules of the first D = 40 transformer (the 1x1-conv projections)
+    stages = [n for n, _ in unet.named_children()] + [
+        n for n, _ in unet.named_modules() if n.startswith("down_0_attn_0.")]
+    errs = unet_vs_cpu("LCM Dreamshaper v7 (t=759, w=6.5)", unet, (z, 759.0, ctx, w), half,
+                       stages)
     del half
+    worst = max(errs, key=errs.get)
+    log("[9 lcm] f32 card vs CPU by stage (max |card - CPU| / max |CPU| of each output): "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f"; largest {worst} {errs[worst]:.2e}")
     return rows
 
 
@@ -1040,12 +1159,7 @@ def phase_lcm_cli(work_dir, image_px=512):
     from loco_edit_tpu_torch.pipelines import lcm as lcm_pipeline
 
     root = os.path.join(work_dir, "lcm")
-    mask_dir = os.path.join(root, "LCM-Random-nonsemantic", "results", "mask")
-    os.makedirs(mask_dir)
     px = image_px
-    masks = np.zeros((1, px, px, 3), bool)
-    masks[:, px // 8:3 * px // 8, 5 * px // 16:11 * px // 16] = True
-    np.savez(os.path.join(mask_dir, "mask.npz"), masks=masks)
     for_prompt, edit_prompt = "A photo of a man", "A photo of a man having curly hair"
     argv = ["--model_name", "LCM_Dreamshaper_v7", "--dataset_name", "Random",
             "--dtype", "bf16", "--device", "cuda", "--for_prompt", for_prompt,
@@ -1057,7 +1171,9 @@ def phase_lcm_cli(work_dir, image_px=512):
             "--pca_rank_null", "5", "--tilda_v_score_type", "null+(for-null)+(edit-null)",
             "--non_semantic", "true", "--use_yh_custom_scheduler", "false",
             "--use_mask", "true", "--mask_index", "0", "--note", "nonsemantic",
-            "--seed", "0", "--vis_num", "1", "--result_folder", root]
+            "--seed", "0", "--vis_num", "1", "--mask_backend", "flax",
+            "--result_folder", root]
+    masks = sam_sampling_run("9 lcm", cli_main, argv, px)
     log(f"[9 lcm] python -m loco_edit_tpu_torch.cli.main {' '.join(argv)}; cuts: {LCM_CUTS}")
     pipes = []
     run_zt = lcm_pipeline.LCMEditPipeline.run_edit_null_space_projection_zt
@@ -1108,7 +1224,7 @@ def phase_lcm_cli(work_dir, image_px=512):
         "VAEDecoder": 1 + 5 + chunks, "VAEEncoder": 0}, SD_PER_FWD)
 
     d_vT, d_launches, d_fwd, d_s, d_peak = run_main_path(
-        lambda: pipe.delta_zt_via_grad(out["zt"], for_prompt, edit_prompt, masks),
+        lambda: pipe.delta_zt_via_grad(out["zt"], for_prompt, edit_prompt, masks[:1]),
         SDUNet, VAEDecoder, VAEEncoder)
     d_vT = d_vT.cpu().numpy()
     d_checks = {"shape": d_vT.shape == (1, int(np.prod(lat))),
@@ -1252,6 +1368,187 @@ def phase_if_cli(work_dir, ckpt1, ckpt2):
     return launches
 
 
+def phase_sam():
+    """Phase 11: SAM at facebook/sam-vit-large's geometry with seeded random
+    weights (prepare_sam's hub-name branch): the parameter count; the f32
+    encoder embedding and one 64-point decode batch (logits, IoU) on the
+    card against the same model on the CPU, in full f32 (held to FWD_RTOL)
+    and with TF32 convolutions (printed); then automatic mask generation on a
+    seeded 512 px image, timed (the second of two runs)."""
+    from loco_edit_tpu_torch.masks.sam import prepare_sam, segment_image_on_device
+
+    t0 = time.perf_counter()
+    bundle = prepare_sam("facebook/sam-vit-large", device="cuda", seed=0)
+    build_s = time.perf_counter() - t0
+    counts = [sum(p.numel() for p in m.parameters()) for m in (bundle.encoder, bundle.decoder)]
+    log(f"[11 sam] ViT-L encoder {counts[0]:,} and decoder {counts[1]:,} parameters (the JAX "
+        f"build's {SAM_ENCODER_PARAMS:,} and {SAM_DECODER_PARAMS:,}); seeded in {build_s:.1f} s")
+    if counts != [SAM_ENCODER_PARAMS, SAM_DECODER_PARAMS]:
+        fail(f"SAM parameter counts {counts} != {[SAM_ENCODER_PARAMS, SAM_DECODER_PARAMS]}")
+
+    cpu = {}
+    for name in ("encoder", "decoder"):
+        m = getattr(bundle, name)
+        with torch.device("cpu"):
+            cpu[name] = type(m)(m.cfg)
+        cpu[name].load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        cpu[name].requires_grad_(False).eval()
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(1, 1024, 1024, 3)).astype(np.float32))
+    pts = torch.from_numpy(rng.uniform(0, 1024, (1, 64, 1, 2)).astype(np.float32))
+    lbl = torch.ones(1, 64, 1, dtype=torch.int32)
+
+    def run(enc, dec, dev):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            emb = enc(x.to(dev))
+            m, iou = dec(emb, points=pts.to(dev), labels=lbl.to(dev))
+        return emb.cpu(), m.cpu(), iou.cpu(), time.perf_counter() - t0
+
+    ref = run(cpu["encoder"], cpu["decoder"], "cpu")
+    res = {}
+    for allowed in (False, True):
+        with tf32_convs(allowed):
+            out = run(bundle.encoder, bundle.decoder, "cuda")
+        for i, name, shape in ((0, "embedding", (1, 64, 64, 256)),
+                               (1, "logits", (1, 64, 3, 256, 256)), (2, "iou", (1, 64, 3))):
+            if not (torch.isfinite(out[i]).all() and tuple(out[i].shape) == shape):
+                fail(f"SAM {name} on the card is not finite of shape {shape}")
+            res[("tf32" if allowed else "f32", name)] = rel_err(out[i], ref[i])
+    log("[11 sam] f32 card vs CPU (max |card - CPU| / max |CPU|): " + ", ".join(
+        f"{n} {res[('f32', n)]:.2e}" for n in ("embedding", "logits", "iou"))
+        + f", tol {FWD_RTOL:.0e}; with TF32 convolutions (PyTorch's default): "
+        + ", ".join(f"{n} {res[('tf32', n)]:.2e}" for n in ("embedding", "logits", "iou"))
+        + f"; encode + one decode batch: card {out[3]:.2f} s, CPU {ref[3]:.2f} s")
+    bad = {n: e for (k, n), e in res.items() if k == "f32" and not e <= FWD_RTOL}
+    if bad:
+        fail(f"SAM f32 card vs CPU relative errors above {FWD_RTOL:.0e}: {bad}")
+    del cpu
+
+    yy, xx = np.mgrid[:512, :512] / 512
+    img = np.random.default_rng(12).uniform(0, 40, (512, 512, 3)) + 200 * np.stack(
+        [yy, xx, 1 - yy], -1)
+    img[((yy - 0.5) / 0.3) ** 2 + ((xx - 0.45) / 0.2) ** 2 < 1] = (200, 150, 120)
+    img = img.astype(np.uint8)
+    for _ in range(2):
+        masks = segment_image_on_device(img, prepared=bundle, resolution=512)
+    t = bundle.timings
+    checks = {"masks": masks.ndim == 3 and masks.shape[1:] == (512, 512)
+              and masks.dtype == bool and len(masks) >= 1}
+    log(f"[11 sam] automatic masks of a 512 px image, 32 x 32 points: encode "
+        f"{t['encode'] * 1e3:.1f} ms, decode {t['decode'] * 1e3 / t['decode_batches']:.1f} ms "
+        f"a batch of 64 points ({t['decode_batches']} batches), host filters and NMS "
+        f"{t['filter'] * 1e3:.1f} ms; {t['candidates']} candidates, {t['kept']} masks kept, "
+        f"areas {[round(float(m.mean()), 3) for m in masks]}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"SAM mask checks failed: {checks}")
+    del bundle
+    return res
+
+
+P2_SCRIPT = "scripts/main_hf_null_space_projection_FFHQ_P2.sh"
+
+
+def write_ffhq_folder(root, size=256, seed=13):
+    """A seeded one-image FFHQ-style folder: a face-like picture (skin and
+    hair ellipses, eyes, mouth over a gradient) as 00000.png."""
+    from PIL import Image
+
+    os.makedirs(root)
+    yy, xx = np.mgrid[:size, :size] / size
+    img = (np.random.default_rng(seed).uniform(0, 30, (size, size, 3))
+           + 150 * np.stack([1 - yy, 0.6 + 0 * xx, yy], -1))
+    for (cy, cx, ry, rx), rgb in (((0.3, 0.5, 0.25, 0.33), (60, 40, 30)),
+                                  ((0.55, 0.5, 0.33, 0.26), (220, 170, 140)),
+                                  ((0.48, 0.4, 0.03, 0.05), (40, 40, 60)),
+                                  ((0.48, 0.6, 0.03, 0.05), (40, 40, 60)),
+                                  ((0.72, 0.5, 0.04, 0.1), (170, 60, 60))):
+        img[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1] = rgb
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+        os.path.join(root, "00000.png"))
+    return root
+
+
+def phase_p2_sam_cli(work_dir, model_name="FFHQ_P2", image_px=256):
+    """Phase 12: scripts/main_hf_null_space_projection_FFHQ_P2.sh through
+    cli.main.main with every flag it passes, plus --device cuda, the
+    synthetic folder as --dataset_root, --result_folder and --mask_backend
+    flax: f32, seeded random P2 and SAM ViT-L weights, the port's own
+    backend flags. The --sampling_mode true run caches the SAM masks and
+    exits 0; the rerun (--sampling_mode false, as the script passes it)
+    edits with --mask_index 0. Returns the edit's launch counts. model_name
+    and image_px: a CPU rehearsal passes a tiny model's."""
+    from loco_edit_tpu_torch.cli.main import main as cli_main
+    from loco_edit_tpu_torch.models.adm import ADMUNet
+    from loco_edit_tpu_torch.ops.flash_attention import route
+
+    ffhq = write_ffhq_folder(os.path.join(work_dir, "ffhq"), image_px)
+    steps, edit_t, rank, vis_num = 100, 0.2, 3, 2
+    argv = ["--sh_file_name", P2_SCRIPT, "--sample_idx", "0", "--dtype", "fp32",
+            "--seed", "1", "--model_name", model_name, "--dataset_name", "FFHQ",
+            "--dataset_root", ffhq, "--checkpoint_path", "",
+            "--mask_model_name", "facebook/sam-vit-large", "--mask_type", "SAM",
+            "--for_steps", str(steps), "--inv_steps", str(steps),
+            "--use_yh_custom_scheduler", "true", "--x_space_guidance_edit_step", "1",
+            "--x_space_guidance_scale", "12.0", "--x_space_guidance_num_step", "1",
+            "--edit_t", str(edit_t), "--performance_boosting_t", "0.2",
+            "--run_edit_null_space_projection", "true", "--note", "Uncond",
+            "--null_space_projection", "true", "--pca_rank_null", "5",
+            "--pca_rank", str(rank), "--mask_index", "0", "--vis_num", str(vis_num),
+            "--device", "cuda", "--result_folder", os.path.join(work_dir, "runs"),
+            "--mask_backend", "flax"]
+    masks = sam_sampling_run("12 p2 sam", cli_main, argv, image_px)
+    edit_argv = argv + ["--sampling_mode", "false"]
+    log(f"[12 p2 sam] python -m loco_edit_tpu_torch.cli.main {' '.join(edit_argv)}")
+    dtypes = set()
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, a: dtypes.add(a[0].dtype) if isinstance(m, ADMUNet) else None)
+    try:
+        res, launches, fwd, total_s, peak = run_main_path(lambda: cli_main(edit_argv), ADMUNet)
+    finally:
+        hook.remove()
+    fwd = fwd["ADMUNet"]
+    out = res["edit"]
+    t_idx = out["edit_t_idx"]
+    fixed = (steps - 2) + t_idx + (steps - 1 - t_idx)   # invert + generate + strips
+    # ranks 3 and 5 differ, so the mask and null bases run one after the
+    # other, each 1 primal + one per sweep (10-50 sweeps)
+    basis_fwd = fwd - fixed
+    vT = out["vT"]
+    norms = np.linalg.norm(vT, axis=1)
+    files = sorted(os.listdir(out["out_dir"])) + sorted(
+        os.listdir(os.path.join(out["out_dir"], "basis", f"local_basis-{edit_t}T")))
+    frames = 3   # x-space guidance of 1 step: frames -1, 0 and +1 whatever vis_num
+    checks = {
+        "f32": dtypes == {torch.float32},
+        "xt_finite": bool(np.isfinite(out["xt"]).all()),
+        "vT_shape": list(vT.shape) == [rank, image_px * image_px * 3],
+        "vT_finite": bool(np.isfinite(vT).all()),
+        "vT_unit_norm": bool(np.abs(norms - 1).max() < 1e-4),
+        "strips": sorted(out["strips"]) == list(range(rank)) and all(
+            s.shape == (frames, image_px, image_px, 3) and np.isfinite(s).all()
+            for s in out["strips"].values()),
+        "pngs": sum(f.startswith("edit-") and f.endswith(".png") for f in files) == rank,
+        "npz": all(f"pc_{i:03d}-vT.npz" in files for i in range(rank))
+        and sum(f.startswith("vT-") and f.endswith(".npz") for f in files) == 2,
+        "sweeps_in_range": 2 * (1 + 10) <= basis_fwd <= 2 * (1 + 50),
+    }
+    phases = {k: round(v, 3) for k, v in res["timings"]["edit"].items()}
+    log(f"[12 p2 sam] f32 edit with SAM mask 0 ({masks[0, ..., 0].mean():.3f} of pixels): "
+        f"{total_s:.2f} s total (model build and dataset included); phases (s) {phases}; "
+        f"peak device memory {peak:.2f} GiB; {fwd} P2 forwards ({basis_fwd} in the two bases), "
+        f"routes GroupNorm vec16-two-launch f32, attention {route(torch.float32, 64)}; "
+        f"launches {launches}; checks {checks}; |vT| rows {norms.round(6).tolist()}")
+    if not all(checks.values()):
+        fail(f"FFHQ_P2 SAM script checks failed: {checks}")
+    _, n_gn, n_attn, _ = MODELS["P2"]
+    predicted = {"groupnorm": n_gn * fwd, "flash_attention": n_attn * fwd}
+    if launches != predicted:
+        fail(f"FFHQ_P2 SAM script launches {launches} != predicted {predicted}: a path "
+             "went around a kernel or launched it more than once per forward")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -1263,8 +1560,6 @@ def main() -> int:
         print("chip_smoke: run from the root of a loco-edit-tpu checkout",
               file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     from loco_edit_tpu_torch.models.ddpm import load_ddpm_denoiser
     from loco_edit_tpu_torch.models.registry import load_adm_denoiser
 
@@ -1272,17 +1567,20 @@ def main() -> int:
     smi = phase_build()
 
     den32 = load_adm_denoiser("FFHQ_P2", dtype=torch.float32, device="cuda", seed=0)
-    rows = phase_kernels(den32.meta["model"], "P2")
-    phase_forward_vs_cpu(den32, "FFHQ_P2")
+    with tf32_convs(False):
+        rows = phase_kernels(den32.meta["model"], "P2")
+        phase_forward_vs_cpu(den32, "FFHQ_P2")
     del den32
     ddpm32 = load_ddpm_denoiser("CelebA_HQ_HF", dtype=torch.float32, device="cuda", seed=0)
-    rows += phase_kernels(ddpm32.meta["model"], "DDPM")
-    phase_forward_vs_cpu(ddpm32, "CelebA_HQ_HF")
+    with tf32_convs(False):
+        rows += phase_kernels(ddpm32.meta["model"], "DDPM")
+        phase_forward_vs_cpu(ddpm32, "CelebA_HQ_HF")
     del ddpm32
     sd32 = load_sd_models("fp32")
-    for tag, calls in record_sd_call_shapes(sd32).items():
-        rows += kernel_rows(tag, *calls)
-    phase_sd_forward_vs_cpu(sd32)
+    with tf32_convs(False):
+        for tag, calls in record_sd_call_shapes(sd32).items():
+            rows += kernel_rows(tag, *calls)
+        phase_sd_forward_vs_cpu(sd32)
     del sd32
     torch.cuda.empty_cache()
 
@@ -1304,7 +1602,8 @@ def main() -> int:
         f"{LCM_UNET_PARAMS:,}: SD 1.5's and cond_proj's)")
     if n_lcm != LCM_UNET_PARAMS:
         fail(f"LCM U-Net has {n_lcm} parameters, expected {LCM_UNET_PARAMS}")
-    rows += phase_lcm_kernels_and_forward(lcm32)
+    with tf32_convs(False):
+        rows += phase_lcm_kernels_and_forward(lcm32)
     del lcm32
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
@@ -1321,21 +1620,32 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         if counts != [IF_I_M_PARAMS, IF_II_M_PARAMS]:
             fail(f"IF parameter counts {counts} != {[IF_I_M_PARAMS, IF_II_M_PARAMS]}")
-        rows += phase_if_kernels_and_forward(*ckpts)
+        with tf32_convs(False):
+            rows += phase_if_kernels_and_forward(*ckpts)
         torch.cuda.empty_cache()
         if_edit = phase_if_cli(work_dir, *ckpts)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_sam()
+    log(f"[11 sam] phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work_dir:
+        p2_sam_edit = phase_p2_sam_cli(work_dir)
+    log(f"[12 p2 sam] phase: {time.perf_counter() - t0:.1f} s")
 
     paths = {"p2_flagship": p2_launches, "ddpm_cli_edit": edit_launches,
              "ddpm_cli_group_edit": group_launches, "sd_cli_edit": sd_edit,
              "sd_delta_zt_via_grad": sd_delta, "sd_invert": sd_invert,
              "lcm_cli_edit": lcm_edit, "lcm_delta_zt_via_grad": lcm_delta,
-             "if_cli_edit": if_edit}
+             "if_cli_edit": if_edit, "p2_f32_sam_cli_edit": p2_sam_edit}
     kernels = [
         summarize(rows, "groupnorm", "loco_edit_tpu_torch/csrc/groupnorm.cu",
-                  "loco_edit_tpu/ops/pallas/groupnorm_stats.py:70",
+                  "loco_edit_tpu/ops/pallas/groupnorm_stats.py:79",
                   {k: v["groupnorm"] for k, v in paths.items()}),
         summarize(rows, "flash_attention", "loco_edit_tpu_torch/csrc/flash_attention.cu",
-                  "loco_edit_tpu/ops/pallas/flash_attention.py:56",
+                  "loco_edit_tpu/ops/pallas/flash_attention.py:67",
                   {k: v["flash_attention"] for k, v in paths.items()}),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

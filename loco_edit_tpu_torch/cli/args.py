@@ -4,12 +4,11 @@ script archiving, per-family input sizes, the x-space-guidance scale lookup,
 the scheduler invariants), plus `--device`, the port's counterpart of
 JAX_PLATFORMS: the card ("cuda", the default) or "cpu".
 
-The port runs the unconditional engines and the Stable Diffusion engine.
-`check_supported` raises
-NotImplementedError, naming the ROADMAP.md item that ports it, for every
-flag set to a value this port cannot honour yet; no flag is silently
-ignored. SAM masks are refused where they would be made
-(cli/main.py::get_sample_and_mask, cli/main.py::_t2i_mask).
+The port runs the unconditional engines and the SD, LCM and DeepFloyd-IF
+engines, with SAM masks (the two-phase --sampling_mode / --mask_index
+protocol). `check_supported` raises NotImplementedError, naming the
+ROADMAP.md item that ports it, for every flag set to a value this port
+cannot honour yet; no flag is silently ignored.
 """
 
 from __future__ import annotations
@@ -150,9 +149,12 @@ def parse_args(argv=None):
     add("--trace_dir", type=str, default="")
 
     # mask segmentation
-    add("--mask_model_name", type=str, default="facebook/sam-vit-large")
-    # the SAM flags below parse as in the JAX package; SAM itself is not
-    # ported (ROADMAP.md Queue A item 13)
+    add("--mask_model_name", type=str, default="facebook/sam-vit-large",
+        help="a local SamModel.save_pretrained dir, a file holding a HF-named "
+             "SamModel state_dict, or a hub name (seeded random weights at its "
+             "geometry: masks/sam.py::prepare_sam)")
+    # flax: the port's own SAM on --device (the value keeps the JAX name);
+    # hf_pipeline: transformers' pipeline on the host
     add("--mask_backend", type=str, default="hf_pipeline",
         choices=["hf_pipeline", "flax"])
     add("--filter_mask", type=int, default=100)
@@ -181,7 +183,6 @@ UNPORTED = {
     "mesh_sp": (0, "Queue A item 15 (parallel/sp.py)"),
     "trace_dir": ("", "Queue A item 15 (utils/logger.py)"),
     "verify_load": ("", "Queue A item 14 (cli/verify_load.py)"),
-    "sampling_mode": (False, "Queue A item 13 (SAM masks)"),
 }
 
 

@@ -11,8 +11,9 @@ Run e.g.:
       --edit_t 0.6 --performance_boosting_t 0.2 --use_x_space_guidance true \
       --x_space_guidance_num_step 16 --h_t 0.6
 
-or, for Stable Diffusion 2.1-base (a cached result_folder/mask/mask.npz
-selects the edit region):
+or, for Stable Diffusion 2.1-base (SAM masks of the generated image are
+cached at result_folder/mask/mask.npz on the first run; --mask_index picks
+one):
   python -m loco_edit_tpu_torch.cli.main \
       --model_name stabilityai/stable-diffusion-2-1-base --dtype bf16 \
       --checkpoint_path unet.bin --vae_path vae.bin --text_encoder_path clip/ \
@@ -25,6 +26,7 @@ selects the edit region):
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 
@@ -64,25 +66,55 @@ def build_uncond_pipeline(args):
 
 def get_sample_and_mask(args, pipe, denoiser, rng):
     """Resolve the input image (dataset sample or seeded noise) and the edit
-    mask (CelebAMask-HQ ground truth or none). Returns (x0, xT, mask):
-    numpy x0 or a latent xT on the pipeline's device, and a boolean NHWC
-    mask or None."""
+    mask (CelebAMask-HQ ground truth, the SAM cache, or none), mirroring the
+    reference's branches (src/modules/edit.py:2234-2267). Returns (x0, xT,
+    mask): numpy x0 or a latent xT on the pipeline's device, and a boolean
+    NHWC mask or None."""
     from loco_edit_tpu_torch.data import get_dataset
 
-    if args.use_mask and args.dataset_name != "CelebA_HQ_mask":
-        raise NotImplementedError(
-            f"--use_mask true on --dataset_name {args.dataset_name!r} needs SAM "
-            "masks, which are not ported yet (ROADMAP.md Queue A item 13); use "
-            "CelebA_HQ_mask or --use_mask false")
     h, w, c = denoiser.sample_shape
     if args.dataset_name == "Random":
         xT = rng.fork("xT").normal((1, h, w, c), device=pipe.device)
-        return None, xT, None
+        # SAM needs a decoded image: denoise xT to x0 lazily (only when the
+        # mask cache is cold)
+        mask = _sam_mask(args, None, make_image=lambda: pipe.generate(xT, 0, None)
+                         .cpu().numpy()) if args.use_mask else None
+        return None, xT, mask
     dataset = get_dataset(args.dataset_name, args.dataset_root, args.image_size,
                           save_path=os.path.join(args.result_folder, "dataset"))
     x0 = np.asarray(dataset[args.sample_idx])
-    mask = dataset.getmask(args.sample_idx, args.choose_sem) if args.use_mask else None
+    if args.dataset_name == "CelebA_HQ_mask":
+        mask = dataset.getmask(args.sample_idx, args.choose_sem) if args.use_mask else None
+    else:
+        mask = _sam_mask(args, x0) if args.use_mask else None
     return x0, None, mask
+
+
+def _read_mask(mask_path: str, mask_index: int) -> np.ndarray:
+    with np.load(mask_path) as z:
+        return z["masks"][mask_index][None].astype(bool)
+
+
+def _sam_mask(args, x0, make_image=None):
+    """SAM two-phase protocol: --sampling_mode extracts and caches the masks
+    at result_folder/sample_idx{i}/mask/mask.npz, then exits 0; the
+    follow-up run selects --mask_index (reference
+    src/modules/mask_segmentation.py + edit.py:2237-2247). make_image
+    supplies a generated sample lazily when x0 is None (the Random
+    dataset)."""
+    mask_path = os.path.join(args.result_folder, f"sample_idx{args.sample_idx}",
+                             "mask", "mask.npz")
+    if os.path.exists(mask_path):
+        return _read_mask(mask_path, args.mask_index)
+    if args.sampling_mode:
+        from loco_edit_tpu_torch.masks.sam import check_sam_source, extract_and_cache_masks
+
+        check_sam_source(args.mask_backend, args.mask_model_name)
+        extract_and_cache_masks(args, make_image() if x0 is None else x0, mask_path)
+        print("sampling_mode: masks extracted; rerun with --mask_index")
+        sys.exit(0)
+    raise FileNotFoundError(
+        f"no cached mask at {mask_path}; run once with --sampling_mode true")
 
 
 def main(argv=None):
@@ -230,18 +262,35 @@ def build_if_pipeline(args):
     return pipe, b, rng
 
 
-def _t2i_mask(args):
-    """The edit mask of a T2I engine: the cached result_folder/mask/mask.npz
-    ("masks", (n, H, W, 3) bool; --mask_index picks one). Making the cache
-    needs SAM, which is not ported."""
-    mask_path = os.path.join(args.result_folder, "mask", "mask.npz")
-    if os.path.exists(mask_path):
-        with np.load(mask_path) as z:
-            return z["masks"][args.mask_index][None].astype(bool)
-    raise NotImplementedError(
-        f"no cached mask at {mask_path}: making one needs SAM, which is not "
-        "ported yet (ROADMAP.md Queue A item 13); write the mask there or "
-        "pass --use_mask false")
+def _t2i_mask_path(args) -> str:
+    return os.path.join(args.result_folder, "mask", "mask.npz")
+
+
+def _t2i_cached_mask(args):
+    """The cached T2I edit mask (result_folder/mask/mask.npz, "masks" (n, H,
+    W, 3) bool; --mask_index picks one), or None on a cold cache. Called
+    before the models are built: a bad cache, or on a cold one SAM flags
+    that cannot run, fail fast."""
+    from loco_edit_tpu_torch.masks.sam import check_sam_source
+
+    if os.path.exists(_t2i_mask_path(args)):
+        return _read_mask(_t2i_mask_path(args), args.mask_index)
+    check_sam_source(args.mask_backend, args.mask_model_name)
+    return None
+
+
+def _t2i_mask(args, x0: np.ndarray) -> np.ndarray:
+    """Two-phase SAM protocol for the T2I engines (reference edit.py:941-956):
+    SAM on the generated image x0 ((1, H, W, 3) in [-1, 1]), every mask
+    cached at the image's side; with --sampling_mode exit 0, else go on
+    with --mask_index."""
+    from loco_edit_tpu_torch.masks.sam import extract_and_cache_masks
+
+    extract_and_cache_masks(args, x0, _t2i_mask_path(args), resolution=x0.shape[1])
+    if args.sampling_mode:
+        print("sampling_mode: masks extracted; rerun with --mask_index")
+        sys.exit(0)
+    return _read_mask(_t2i_mask_path(args), args.mask_index)
 
 
 def _main_sd(args) -> dict:
@@ -249,8 +298,7 @@ def _main_sd(args) -> dict:
 
     semantic = args.run_edit_null_space_projection_zt_semantic
     edit = args.run_edit_null_space_projection_zt or semantic
-    # read before the models are built: a missing mask fails fast
-    mask = _t2i_mask(args) if edit and args.use_mask else None
+    mask = _t2i_cached_mask(args) if edit and args.use_mask else None
     pipe, b, rng = build_sd_pipeline(args)
     results = {"timings": {}}
     if args.run_ddim_forward:
@@ -260,6 +308,10 @@ def _main_sd(args) -> dict:
         save_image_grid(img, os.path.join(args.result_folder, "DDIMforward.png"))
         results["forward"] = img
     if edit:
+        if args.use_mask and mask is None:
+            mask = _t2i_mask(args, pipe.decode_to_image(pipe.generate(
+                rng.fork("zT").normal((1,) + tuple(b["latent_shape"]), device=pipe.device),
+                pipe.prompt_set(args.for_prompt, args.edit_prompt), "null+(for-null)")))
         results["edit"] = pipe.run_edit_null_space_projection_zt(
             args.for_prompt, args.edit_prompt, mask=mask, semantic=semantic,
             vT_path=args.vT_path or None)
@@ -271,7 +323,7 @@ def _main_lcm(args) -> dict:
     from loco_edit_tpu_torch.utils.io import save_image_grid
 
     edit = args.run_edit_null_space_projection_zt
-    mask = _t2i_mask(args) if edit and args.use_mask else None
+    mask = _t2i_cached_mask(args) if edit and args.use_mask else None
     pipe, b, rng = build_lcm_pipeline(args)
     results = {"timings": {}}
     if args.run_ddim_forward:
@@ -281,6 +333,10 @@ def _main_lcm(args) -> dict:
         save_image_grid(img, os.path.join(args.result_folder, "LCMforward.png"))
         results["forward"] = img
     if edit:
+        if args.use_mask and mask is None:
+            mask = _t2i_mask(args, pipe.decode_to_image(pipe.forward_steps(
+                rng.fork("zT").normal((1,) + tuple(b["latent_shape"]), device=pipe.device),
+                args.for_prompt)[1]))
         results["edit"] = pipe.run_edit_null_space_projection_zt(
             args.for_prompt, args.edit_prompt, mask=mask, vT_path=args.vT_path or None)
         results["timings"]["edit"] = dict(pipe.timings)
@@ -293,7 +349,7 @@ def _main_if(args) -> dict:
     semantic = args.run_edit_null_space_projection_xt_semantic
     edit = args.run_edit_null_space_projection_xt or semantic
     diffedit = args.mask_type == "diffedit"
-    mask = _t2i_mask(args) if edit and args.use_mask and not diffedit else None
+    mask = _t2i_cached_mask(args) if edit and args.use_mask and not diffedit else None
     pipe, b, rng = build_if_pipeline(args)
     results = {"timings": {}}
     if args.run_ddim_forward:
@@ -311,6 +367,11 @@ def _main_if(args) -> dict:
             x0 = pipe.forward_steps(xT, prompts, "null+(for-null)")
             mask = np.repeat(pipe.diffedit_mask(x0, prompts), 3, axis=-1)
             results["mask"] = mask
+        elif args.use_mask and mask is None:
+            mask = _t2i_mask(args, pipe.forward_steps(
+                rng.fork("xT").normal((1,) + tuple(b["sample_shape"]), device=pipe.device),
+                pipe.prompt_set(args.for_prompt, args.edit_prompt), "null+(for-null)")
+                .cpu().numpy())
         ablation = args.ablation_method if args.ablation_method in ("diffedit", "sega") \
             else None
         results["edit"] = pipe.run_edit_null_space_projection_xt(

@@ -1,7 +1,8 @@
 """Device resolution for the port's entry points.
 
 Entry points run on the card unless the caller asks for the CPU. With no
-card present they raise; they never carry on silently on the CPU.
+card present they raise; they never carry on silently on the CPU. The f32
+entry points set the port's f32 policy (`use_full_f32`).
 """
 
 from __future__ import annotations
@@ -20,3 +21,15 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def use_full_f32(dtype: torch.dtype = torch.float32) -> None:
+    """The port's f32 policy, set by its f32 entry points (the loaders at
+    dtype float32, which the CLI's --dtype fp32 reaches, and SAM): cuBLAS
+    matmuls and cuDNN convolutions in full f32, not TF32. PyTorch's default
+    runs f32 convolutions in TF32, which moves a full-width f32 forward off
+    the CPU by more than 1e-3 relative (PERF.md section 7). Process-wide, as
+    the flags are; a bf16 dtype leaves them as they are."""
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from loco_edit_tpu_torch.core.device import resolve_device
+from loco_edit_tpu_torch.core.device import resolve_device, use_full_f32
 from loco_edit_tpu_torch.models.base import Denoiser
 from loco_edit_tpu_torch.models.convert_util import check_state_dict, flax_to_state_dict
 from loco_edit_tpu_torch.models.ddpm.unet import DDPMConfig, DDPMUNet
@@ -66,8 +66,10 @@ def load_ddpm_denoiser(model_name: str, checkpoint_path: str = "",
                        device: str | torch.device = "cuda",
                        seed: int = 0) -> Denoiser:
     """A DDPM preset by name with weights from a checkpoint or, with none,
-    seeded random weights. Runs on the card unless device="cpu"."""
+    seeded random weights. Runs on the card unless device="cpu"; at f32
+    sets the port's f32 policy (core/device.py::use_full_f32)."""
     dev = resolve_device(device)
+    use_full_f32(dtype)
     cfg = ddpm_preset(model_name, dtype)
     with torch.device(dev):
         model = DDPMUNet(cfg)

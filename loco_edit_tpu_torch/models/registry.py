@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from loco_edit_tpu_torch.core.device import resolve_device
+from loco_edit_tpu_torch.core.device import resolve_device, use_full_f32
 from loco_edit_tpu_torch.models.adm import ADMUNet, adm_preset
 from loco_edit_tpu_torch.models.adm.presets import tiny_test_config
 from loco_edit_tpu_torch.models.base import Denoiser
@@ -67,8 +67,10 @@ def load_adm_denoiser(model_name: str, checkpoint_path: str = "",
                       device: str | torch.device = "cuda",
                       seed: int = 0) -> Denoiser:
     """An ADM preset by name, with weights from a checkpoint or, with none,
-    seeded random weights. Runs on the card unless device="cpu"."""
+    seeded random weights. Runs on the card unless device="cpu"; at f32
+    sets the port's f32 policy (core/device.py::use_full_f32)."""
     dev = resolve_device(device)
+    use_full_f32(dtype)
     cfg = adm_preset(model_name, dtype=dtype)
     with torch.device(dev):
         model = ADMUNet(cfg)
@@ -86,6 +88,7 @@ def load_tiny_denoiser(dtype: torch.dtype = torch.float32,
                        seed: int = 0) -> Denoiser:
     """32px tiny ADM ("TinyTest") with seeded random weights + 0.02."""
     dev = resolve_device(device)
+    use_full_f32(dtype)
     cfg = tiny_test_config(dtype=dtype)
     with torch.device(dev):
         model = ADMUNet(cfg)

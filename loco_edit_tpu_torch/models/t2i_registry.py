@@ -24,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from loco_edit_tpu_torch.core.device import resolve_device
+from loco_edit_tpu_torch.core.device import resolve_device, use_full_f32
 from loco_edit_tpu_torch.models.convert_util import check_state_dict
 from loco_edit_tpu_torch.models.sd import (SDUNet, VAEConfig, VAEDecoder, VAEEncoder,
                                            encode_sample, sd_preset)
@@ -101,9 +101,10 @@ def load_sd_bundle(args, lcm: bool = False) -> dict:
     with the guidance embedding, `cond_proj`), or the LOCO_SD_PRESET preset,
     on args.device: U-Net, VAE at 8x the latent size, prompt encoder (the
     fake one is as wide as the preset's context: 1024 for SD 2.1, 768 for
-    SD 1.5 and LCM)."""
+    SD 1.5 and LCM). At f32 sets the port's f32 policy (use_full_f32)."""
     device = resolve_device(getattr(args, "device", "cuda"))
     dtype = _torch_dtype(args.dtype)
+    use_full_f32(dtype)
     preset = os.environ.get("LOCO_SD_PRESET") or (
         "lcm-dreamshaper-v7" if lcm else "sd21-base")
     cfg = sd_preset(preset, dtype=dtype)
@@ -151,12 +152,14 @@ def load_if_bundle(args) -> dict:
     --checkpoint_path, the T5 encoder from --text_encoder_path (else the
     fake encoder, as wide as the U-Net's encoder_hid_dim), and the stage-2
     upscaler sampler from --stage2_checkpoint_path (the reference pairs
-    IF-I-M with IF-II-L)."""
+    IF-I-M with IF-II-L). At f32 sets the port's f32 policy
+    (use_full_f32)."""
     from loco_edit_tpu_torch.core.rng import RngStream
     from loco_edit_tpu_torch.pipelines.superres import SuperResSampler
 
     device = resolve_device(getattr(args, "device", "cuda"))
     dtype = _torch_dtype(args.dtype)
+    use_full_f32(dtype)
     model = _load_if_model(args.checkpoint_path, dtype, device)
     cfg = model.cfg
     path = getattr(args, "text_encoder_path", "")

@@ -173,3 +173,33 @@ def if_tiny_pair(stage2: bool = False, dtype=None):
     unet = IFUNet(cfg)
     unet.load_state_dict(if_params_from_flax(flat_params(params), cfg))
     return junet, params, unet.requires_grad_(False).eval()
+
+
+def tiny_sam_model(decoder_heads: int = 2, window_size: int = 2):
+    """The tiny transformers SamModel of tests/test_sam_decoder_flax.py
+    (decoder heads and window as given), every parameter perturbed and the
+    shared Fourier matrix redrawn, so that every weight carries signal.
+    Returns (SamConfig, SamModel)."""
+    from transformers import SamConfig, SamModel
+
+    cfg = SamConfig(
+        vision_config=dict(
+            hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+            image_size=32, patch_size=8, window_size=window_size,
+            global_attn_indexes=[1], mlp_ratio=2.0, output_channels=32,
+            num_pos_feats=16),
+        prompt_encoder_config=dict(
+            hidden_size=32, image_size=32, patch_size=8,
+            image_embedding_size=4, mask_input_channels=8),
+        mask_decoder_config=dict(
+            hidden_size=32, num_hidden_layers=2, num_attention_heads=decoder_heads,
+            mlp_dim=64, iou_head_depth=3, iou_head_hidden_dim=16),
+        attn_implementation="eager")
+    torch.manual_seed(0)
+    model = SamModel(cfg).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn_like(p) * 0.05)
+        model.shared_image_embedding.positional_embedding.copy_(torch.randn(2, 16) * 2.0)
+        model._tie_weights()
+    return cfg, model

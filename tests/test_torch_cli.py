@@ -116,16 +116,7 @@ TINY_CLI = ["--model_name", "TinyTest", "--for_steps", "6", "--inv_steps", "6",
 @pytest.mark.parametrize("extra", [
     ["--mesh_probe", "2"], ["--mesh_data", "2"], ["--mesh_sp", "2"],
     ["--trace_dir", "trace"], ["--verify_load", "ddpm"],
-    ["--sampling_mode", "true"],
-    ["--model_name", "stable-diffusion-v1-5", "--performance_boosting_t", "0",
-     "--use_mask", "true", "--run_edit_null_space_projection_zt", "true"],
     ["--model_name", "LCM_Dreamshaper", "--pixel_output", "true"],
-    ["--model_name", "DeepFloyd-IF", "--performance_boosting_t", "0", "--use_mask", "true",
-     "--mask_type", "SAM", "--run_edit_null_space_projection_xt_semantic", "true"],
-    ["--dataset_name", "Random", "--use_mask", "true",
-     "--run_edit_null_space_projection", "true"],
-    ["--dataset_name", "FFHQ", "--use_mask", "true",
-     "--run_edit_null_space_projection", "true"],
 ])
 def test_unported_flags_raise(extra, tmp_path):
     """A flag the port cannot honour yet raises NotImplementedError naming

@@ -494,3 +494,100 @@ def test_lcm_and_if_bf16_forward_launch_counts(which):
     assert torch.isfinite(out).all()
     assert group_norm_cuda.launches - gn0 == sum(shapes[0].values())
     assert flash_attention_cuda.launches - at0 == sum(shapes[1].values())
+
+
+def _tiny_sam_on(device: str):
+    """A tiny SAM encoder (windowed + global, padded windows) and decoder
+    with seeded weights, the rel-pos tables and the positional embedding
+    redrawn so that they carry signal; CPU copies of the same weights."""
+    from loco_edit_tpu_torch.masks.sam_decoder import SamDecoderConfig, SamMaskDecodeModel
+    from loco_edit_tpu_torch.masks.sam_vit import SamViTConfig, SamViTEncoder
+
+    cfg = SamViTConfig(image_size=64, patch_size=8, hidden_size=64, num_layers=3,
+                       num_heads=4, mlp_ratio=2.0, window_size=3, global_attn_indexes=(1,),
+                       output_channels=32)
+    dcfg = SamDecoderConfig(hidden_size=32, num_pos_feats=16, num_attention_heads=2,
+                            mlp_dim=64, iou_head_hidden_dim=16, image_embedding_size=8,
+                            input_image_size=64, mask_input_channels=8)
+    g = torch.Generator(device).manual_seed(0)
+    with torch.device(device):
+        enc, dec = SamViTEncoder(cfg), SamMaskDecodeModel(dcfg)
+    enc.init_random_(g, std=0.1)
+    dec.init_random_(g, pe_scale=2.0, std=0.1)
+    with torch.no_grad():
+        for n, p in enc.named_parameters():
+            if "rel_pos" in n or n == "pos_embed":
+                p.normal_(0.0, 0.1, generator=g)
+    cpu = []
+    for m in (enc, dec):
+        with torch.device("cpu"):
+            c = type(m)(m.cfg)
+        c.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        cpu.append(c.eval())
+    return enc.eval(), dec.eval(), *cpu
+
+
+def _rel(a, b) -> float:
+    return ((a.float().cpu() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def test_sam_encoder_on_card_matches_cpu():
+    """The tiny SAM encoder in f32 on the card against the CPU: summation
+    order only (1e-4 of the largest output)."""
+    _card()
+    enc, _, cpu_enc, _ = _tiny_sam_on("cuda")
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got, want = enc(x.cuda()), cpu_enc(x)
+    assert got.shape == want.shape == (2, 8, 8, 32)
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["points", "boxes_mask"])
+def test_sam_decoder_on_card_matches_cpu(case):
+    """The tiny SAM decoder on the card against the CPU (1e-4 of the largest
+    logit and IoU): point labels 1, 0, -10 and -1; boxes with an input-mask
+    dense prompt and single-mask output."""
+    _card()
+    _, dec, _, cpu_dec = _tiny_sam_on("cuda")
+    g = torch.Generator().manual_seed(2)
+    emb = torch.randn(1, 8, 8, 32, generator=g)
+    kw = dict(points=torch.rand(1, 3, 3, 2, generator=g) * 64,
+              labels=torch.tensor([[[1, 0, -10], [1, 1, 0], [0, -1, 1]]], dtype=torch.int32))
+    if case == "boxes_mask":
+        kw = dict(boxes=torch.tensor([[[4.0, 4.0, 40.0, 50.0], [10.0, 2.0, 60.0, 30.0]]]),
+                  input_masks=torch.randn(1, 32, 32, 1, generator=g))
+    multi = case == "points"
+    with torch.no_grad():
+        got = dec(emb.cuda(), multimask_output=multi, **{k: v.cuda() for k, v in kw.items()})
+        want = cpu_dec(emb, multimask_output=multi, **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert _rel(a, b) <= 1e-4
+
+
+def test_f32_loader_sets_full_f32_policy():
+    """From PyTorch's default (TF32 convolutions) an f32 loader switches the
+    process to full f32, and the full-width f32 P2 eps then agrees with the
+    CPU within 1e-3 relative; with TF32 convolutions it does not (chip_smoke
+    phase 3 prints both)."""
+    _card()
+    from loco_edit_tpu_torch.models.registry import load_adm_denoiser
+
+    torch.backends.cudnn.allow_tf32 = True
+    den = load_adm_denoiser("FFHQ_P2", dtype=torch.float32, device="cuda", seed=0)
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    model = den.meta["model"]
+    with torch.device("cpu"):
+        cpu = type(model)(model.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.randn(1, 256, 256, 3, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        got, want = model(x.cuda(), 595.0), cpu.requires_grad_(False).eval()(x, 595.0)
+        assert _rel(got, want) <= 1e-3
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = model(x.cuda(), 595.0)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    assert _rel(tf32, want) > 1e-3

@@ -119,21 +119,23 @@ def test_sd_cli_artifact_tree_matches_jax(cli_runs):
 
 
 def test_sd_cli_without_a_mask_cache_raises(tmp_path):
-    """--use_mask true with no cached mask needs SAM: NotImplementedError
-    naming its ROADMAP item, before any model is built."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 13"):
+    """--use_mask true with no cached mask runs SAM on the generated image;
+    the default --mask_backend hf_pipeline with a hub name would fetch
+    weights, so it raises before any model is built."""
+    with pytest.raises(FileNotFoundError, match="hf_pipeline reads a local"):
         main.main(SD_CLI + ["--result_folder", str(tmp_path), "--device", "cpu"])
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["--model_name", "LCM_Dreamshaper"], "item 13"),
-    (["--model_name", "DeepFloyd-IF", "--pixel_output", "true"], "item 15"),
+@pytest.mark.parametrize("argv, error, match", [
+    (["--model_name", "LCM_Dreamshaper"], FileNotFoundError, "hf_pipeline reads a local"),
+    (["--model_name", "DeepFloyd-IF", "--pixel_output", "true"], NotImplementedError,
+     "item 15"),
 ])
-def test_other_t2i_families_raise(argv, match, tmp_path):
+def test_other_t2i_families_raise(argv, error, match, tmp_path):
     """The LCM and IF engines run under these flags, and refuse what they
-    cannot honour yet, naming its ROADMAP item: LCM a missing mask cache
-    (SAM, item 13) before any model is built, IF --pixel_output (item 15)."""
-    with pytest.raises(NotImplementedError, match=match):
+    cannot do before any model is built: LCM SAM masks from hub weights
+    over hf_pipeline (never fetched), IF --pixel_output (ROADMAP item 15)."""
+    with pytest.raises(error, match=match):
         main.main(SD_CLI + ["--result_folder", str(tmp_path), "--device", "cpu"] + argv)
 
 
