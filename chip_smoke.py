@@ -22,7 +22,11 @@ Phases (any failure raises; nothing is caught and skipped):
      replayed from a CUDA graph (`device_ms`: the device alone); GroupNorm
      launched twice on one input must give the same bits; for attention,
      the plain version with the last key tile skipped, or the logits scaled
-     by ATTN_MUTANT_SCALE, must miss the tolerance (a check of the check).
+     by ATTN_MUTANT_SCALE, and in f32 the plain version on TF32-rounded
+     operands (a 1xTF32 kernel), must miss the tolerance (a check of the
+     check). The f32 attention route is 3xTF32 on the tensor cores; its
+     bound is taken at 495 / 3 TFLOP/s. Per-forward sums are printed for
+     bf16 and f32.
   3. The full-width FFHQ_P2 and CelebA_HQ_HF forwards in f32 and one J.v of
      the PMP each: the card (kernels) against the CPU (plain versions).
   4. The P2 flagship edit at full width, bf16 network, f32 state: invert,
@@ -72,8 +76,12 @@ Phases (any failure raises; nothing is caught and skipped):
      (the generated 512 px image through SAM ViT-L with seeded weights;
      (n, 512, 512, 3) masks and overlays), the edit reading --mask_index 0;
      cut, printed with the phase: a fixed 5 basis sweeps. Then
-     delta_zt_via_grad from Python. Launches: 61 GN + 32 attention per U-Net
-     forward, 30 + 1 per decode; forwards what the steps predict.
+     delta_zt_via_grad from Python. Then the same command at the script's
+     own --dtype fp32 (the f32 routes: 3xTF32 attention at D = 40, 80, 160),
+     reading the bf16 run's cached mask, LCM_F32_SWEEPS fixed sweeps; its
+     phase seconds, peak memory and launches printed. Launches: 61 GN + 32
+     attention per U-Net forward, 30 + 1 per decode; forwards what the steps
+     predict.
  10. DeepFloyd-IF: seeded diffusers-named IF-I-M and IF-II-M state_dicts
      written to .pt files and loaded through the CLI's registry
      (infer_if_config and the converter at full width). Phase 2's checks at
@@ -105,7 +113,8 @@ default); the CLI and edit phases run under the backend flags the port
 itself sets (its f32 entry points turn TF32 off: core/device.py).
 
 Launch counts are set to 0 just before each main path (phases 4, 6 edit,
-6 group, 8 edit, 8 delta, 8 invert, 9 edit, 9 delta, 10 edit, 12 edit) and
+6 group, 8 edit, 8 delta, 8 invert, 9 edit, 9 delta, 9 f32 edit, 10 edit,
+12 edit) and
 read just after. The last three lines of standard output are the card's name and
 power limit (nvidia-smi), the kernels' JSON line and the result line.
 """
@@ -114,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -127,11 +137,20 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
-              "float32": 67e12}    # f32 outside the tensor cores
+              # the fastest f32-accurate product: TF32 tensor cores (495e12)
+              # at three MMAs a product (3xTF32, the f32 attention route);
+              # at 67e12 (f32 FMA) a correct kernel would read over 100 %
+              "float32": 495e12 / 3,
+              "float32_fma": 67e12}  # f32 outside the tensor cores (GroupNorm)
 # kernel vs plain version: f32 differs by summation order; bf16 outputs are
 # one bf16 rounding of nearby f32 values (two ulps at |y| <= 8 for GN)
 TOL = {("groupnorm", "float32"): 1e-4, ("groupnorm", "bfloat16"): 6e-2,
        ("flash_attention", "float32"): 5e-5}
+# f32 attention: 5e-5, tightened to 2^-13 of the largest |output| where that
+# is smaller: at 4096 keys (max |y| ~ 0.1) one TF32 rounding of the operands
+# (a 1xTF32 kernel, the "tf32" mutant) lands ~4e-4 of the output off, under
+# 5e-5; the 3xTF32 kernel stays near 1e-5 of it (tests/test_torch_attention_f32.py)
+ATTN_F32_SHARE = 2 ** -13
 # bf16 attention: two bf16 ulps of the largest |output| (2^-6 of it; the
 # kernel rounds P before normalizing, the plain version after: within one
 # ulp in the CPU model of tests/test_torch_ops.py), never above the 3e-2 of
@@ -350,7 +369,7 @@ def gn_row(tag, dtype, b, shape, per_forward, g):
     same_bits = torch.equal(y, group_norm_cuda(x, s, bias, eps=eps))
     err = (y.float() - group_norm_plain(x, s, bias, eps=eps).float()).abs().max().item()
     nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
-    bms, by = bound(nbytes, 8 * x.numel(), "float32")
+    bms, by = bound(nbytes, 8 * x.numel(), "float32_fma")
     sl, bl = s.to(dtype), bias.to(dtype)
     return dict(
         model=tag, kernel="groupnorm", dtype=dt, shape=[b, c, h, w],
@@ -364,11 +383,19 @@ def gn_row(tag, dtype, b, shape, per_forward, g):
         bound_ms=bms, bound_by=by)
 
 
-def attn_mutant_errs(q, k, v, tile):
-    """How far two broken kernels would land from the plain version, in f32
-    on the same inputs: one that skipped the last key tile (where there are
-    two or more) and one that scaled the logits by ATTN_MUTANT_SCALE."""
-    from loco_edit_tpu_torch.ops.flash_attention import attention_plain
+def tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away: what
+    cvt.rna.tf32.f32 gives), by bit masking."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def attn_mutant_errs(q, k, v, tile, tf32=False):
+    """How far broken kernels would land from the plain version, in f32 on
+    the same inputs: one that skipped the last key tile (where there are
+    two or more), one that scaled the logits by ATTN_MUTANT_SCALE and, with
+    tf32, one TF32 product (the plain version on TF32-rounded q * s, k * s,
+    v and P: a 1xTF32 kernel)."""
+    from loco_edit_tpu_torch.ops.flash_attention import _scale, attention_plain
 
     q, k, v = q.float(), k.float(), v.float()
     ref = attention_plain(q, k, v)
@@ -378,6 +405,11 @@ def attn_mutant_errs(q, k, v, tile):
         keep = n_kv - ((n_kv - 1) % tile + 1)
         errs["drop_tile"] = (attention_plain(q, k[:, :, :keep], v[:, :, :keep])
                              - ref).abs().max().item()
+    if tf32:
+        s = _scale(q.shape[-1])
+        logits = torch.matmul(tf32_rna(q * s), tf32_rna(k * s).transpose(-1, -2))
+        out = torch.matmul(tf32_rna(torch.softmax(logits, dim=-1)), tf32_rna(v))
+        errs["tf32"] = (out - ref).abs().max().item()
     return errs
 
 
@@ -392,16 +424,29 @@ def attn_row(tag, dtype, b, shape, per_forward, g):
     k, v = (torch.randn(b, heads, nkv, d, device="cuda", generator=g).to(dtype)
             for _ in range(2))
     ref = attention_plain(q, k, v).float()
-    err = (flash_attention_cuda(q, k, v).float() - ref).abs().max().item()
-    tol = (min(ATTN_BF16_CAP, ATTN_BF16_ULPS * ref.abs().max().item())
-           if dtype == torch.bfloat16 else TOL[("flash_attention", dt)])
-    mutants = attn_mutant_errs(q, k, v, kernel_geometry(d).block_k)
+    out = flash_attention_cuda(q, k, v).float()
+    err = (out - ref).abs().max().item()
+    f32 = dtype == torch.float32
+    top = ref.abs().max().item()
+    tol = (min(TOL[("flash_attention", dt)], ATTN_F32_SHARE * top) if f32
+           else min(ATTN_BF16_CAP, ATTN_BF16_ULPS * top))
+    mutants = attn_mutant_errs(q, k, v, kernel_geometry(d, dtype).block_k, tf32=f32)
     bms, by = bound(2 * b * heads * (nq + nkv) * d * q.element_size(),
                     4 * b * heads * nq * nkv * d, dt)
+    extra = {}
+    if f32:   # the kernel's and the plain version's error against float64
+        s64 = d ** -0.25
+        r64 = torch.matmul(torch.softmax(torch.matmul(q.double() * s64, (k.double() * s64)
+                                                      .transpose(-1, -2)), dim=-1), v.double())
+        top64 = r64.abs().max().item()
+        extra = {"f64_rel_err": (out.double() - r64).abs().max().item() / top64,
+                 "plain_f64_rel_err": (ref.double() - r64).abs().max().item() / top64}
+        del r64
+    del out
     return dict(
         model=tag, kernel="flash_attention", dtype=dt, shape=[b, heads, nq, nkv, d],
         route=route(dtype, d), per_forward=per_forward, max_abs_err=err, tol=tol,
-        mutant_errs=mutants,
+        mutant_errs=mutants, **extra,
         ms=cuda_ms(lambda: flash_attention_cuda(q, k, v)),
         plain_ms=cuda_ms(lambda: attention_plain(q, k, v)),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -438,7 +483,9 @@ def kernel_rows(tag, gn_calls, attn_calls):
             + f") kernel {r['ms']:.4f} ms plain "
             f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}) share {r['bound_share']:.3f}; device only: kernel "
-            f"{r['device_ms']:.4f} library {r['library_device_ms']:.4f}")
+            f"{r['device_ms']:.4f} library {r['library_device_ms']:.4f}"
+            + (f"; vs float64 (relative to max |y|): kernel {r['f64_rel_err']:.2e}, plain "
+               f"{r['plain_f64_rel_err']:.2e}" if "f64_rel_err" in r else ""))
     bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -448,10 +495,11 @@ def kernel_rows(tag, gn_calls, attn_calls):
     unstable = [r["shape"] for r in rows if r.get("same_bits") is False]
     if unstable:
         fail(f"GroupNorm gave other bits on a second launch at {unstable}")
-    for name in ("groupnorm", "flash_attention"):
+    for name, dt in (("groupnorm", "bfloat16"), ("flash_attention", "bfloat16"),
+                     ("groupnorm", "float32"), ("flash_attention", "float32")):
         for b in batches:
-            tot = forward_sums(rows, name, b, tag)
-            log(f"[2 kernels] {name} bf16 {tag} forward at batch {b}: kernel "
+            tot = forward_sums(rows, name, b, tag, dt)
+            log(f"[2 kernels] {name} {dt} {tag} forward at batch {b}: kernel "
                 f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, library "
                 f"{tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}; bound share "
                 f"{tot['bound_ms'] / tot['ms']:.3f}, kernel / library "
@@ -469,10 +517,10 @@ def phase_kernels(model, tag):
 SUM_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms")
 
 
-def forward_sums(rows, name, batch, tag):
-    """Sums over the calls of one forward of model `tag` in bf16 (the edit
-    network's dtype) at one batch size."""
-    mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"
+def forward_sums(rows, name, batch, tag, dtype="bfloat16"):
+    """Sums over the calls of one forward of model `tag` in `dtype` (bf16,
+    the edit networks' dtype, unless asked) at one batch size."""
+    mine = [r for r in rows if r["kernel"] == name and r["dtype"] == dtype
             and r["shape"][0] == batch and r["model"] == tag]
     return {k: sum(r[k] * r["per_forward"] for r in mine) for k in SUM_KEYS}
 
@@ -1146,23 +1194,16 @@ def phase_lcm_kernels_and_forward(models):
     return rows
 
 
-def phase_lcm_cli(work_dir, image_px=512):
-    """The LCM edit through the CLI at the reference script's settings
-    (scripts/main_T2I_LCM_null_space_projection_nonsemantic.sh), bf16, then
-    delta_zt_via_grad from Python on the CLI's pipeline. Returns the launch
-    counts of each run. image_px: the VAE's image size (a CPU rehearsal with
-    a tiny bundle passes its own)."""
-    import functools
+LCM_PROMPTS = ("A photo of a man", "A photo of a man having curly hair")
 
-    from loco_edit_tpu_torch.cli.main import main as cli_main
-    from loco_edit_tpu_torch.models.sd import SDUNet, VAEDecoder, VAEEncoder
-    from loco_edit_tpu_torch.pipelines import lcm as lcm_pipeline
 
-    root = os.path.join(work_dir, "lcm")
-    px = image_px
-    for_prompt, edit_prompt = "A photo of a man", "A photo of a man having curly hair"
-    argv = ["--model_name", "LCM_Dreamshaper_v7", "--dataset_name", "Random",
-            "--dtype", "bf16", "--device", "cuda", "--for_prompt", for_prompt,
+def lcm_argv(root, dtype):
+    """The command of scripts/main_T2I_LCM_null_space_projection_nonsemantic.sh
+    through the port's CLI at `dtype`, with --device cuda, --mask_backend
+    flax and --result_folder root."""
+    for_prompt, edit_prompt = LCM_PROMPTS
+    return ["--model_name", "LCM_Dreamshaper_v7", "--dataset_name", "Random",
+            "--dtype", dtype, "--device", "cuda", "--for_prompt", for_prompt,
             "--edit_prompt", edit_prompt, "--guidance_scale", "7.5",
             "--guidance_scale_edit", "7.5", "--num_inference_steps", "4",
             "--edit_t_idx", "2", "--x_space_guidance_scale", "0.4",
@@ -1173,8 +1214,19 @@ def phase_lcm_cli(work_dir, image_px=512):
             "--use_mask", "true", "--mask_index", "0", "--note", "nonsemantic",
             "--seed", "0", "--vis_num", "1", "--mask_backend", "flax",
             "--result_folder", root]
-    masks = sam_sampling_run("9 lcm", cli_main, argv, px)
-    log(f"[9 lcm] python -m loco_edit_tpu_torch.cli.main {' '.join(argv)}; cuts: {LCM_CUTS}")
+
+
+def lcm_cli_edit(tag, argv, px, sweeps):
+    """One LCM edit through the CLI (its mask read from the cache) with
+    `sweeps` fixed basis sweeps, on the main path: the result checked, its
+    phases, peak memory and launches printed, the launches held to its
+    forwards. Returns (launches, the CLI's pipeline, the edit's result)."""
+    import functools
+
+    from loco_edit_tpu_torch.cli.main import main as cli_main
+    from loco_edit_tpu_torch.models.sd import SDUNet, VAEDecoder, VAEEncoder
+    from loco_edit_tpu_torch.pipelines import lcm as lcm_pipeline
+
     pipes = []
     run_zt = lcm_pipeline.LCMEditPipeline.run_edit_null_space_projection_zt
 
@@ -1184,7 +1236,7 @@ def phase_lcm_cli(work_dir, image_px=512):
 
     config = lcm_pipeline.LCMEditConfig
     lcm_pipeline.LCMEditPipeline.run_edit_null_space_projection_zt = capture
-    lcm_pipeline.LCMEditConfig = functools.partial(config, min_iter=5, max_iter=5)
+    lcm_pipeline.LCMEditConfig = functools.partial(config, min_iter=sweeps, max_iter=sweeps)
     try:
         res, launches, fwd, total_s, peak = run_main_path(
             lambda: cli_main(argv), SDUNet, VAEDecoder, VAEEncoder)
@@ -1202,7 +1254,7 @@ def phase_lcm_cli(work_dir, image_px=512):
     files = sorted(os.listdir(out["out_dir"])) + sorted(
         os.listdir(os.path.join(out["out_dir"], "basis")))
     checks = {
-        "config": (pipe.cfg.min_iter, pipe.cfg.max_iter, pipe.w) == (5, 5, LCM_W),
+        "config": (pipe.cfg.min_iter, pipe.cfg.max_iter, pipe.w) == (sweeps, sweeps, LCM_W),
         "grid": pipe.grid.t.tolist() == [999, 759, 519, 279],
         "zt": out["zt"].shape == lat and bool(np.isfinite(out["zt"]).all()),
         "vT_shape": list(vT.shape) == [5, int(np.prod(lat))],
@@ -1212,19 +1264,37 @@ def phase_lcm_cli(work_dir, image_px=512):
         "png": "edit-lcm-idx2.png" in files, "npz": "vT.npz" in files,
     }
     phases = {k: round(v, 3) for k, v in res["timings"]["edit"].items()}
-    log(f"[9 lcm] edit: {total_s:.2f} s total (model build included); phases (s) "
+    log(f"[{tag}] edit: {total_s:.2f} s total (model build included); phases (s) "
         f"{phases}; peak device memory {peak:.2f} GiB; {n_frames} strip frames in "
         f"{chunks} chunk(s); checks {checks}; |vT| rows {norms.round(6).tolist()}")
     if not all(checks.values()):
-        fail(f"LCM CLI edit checks failed: {checks}")
+        fail(f"{tag}: LCM CLI edit checks failed: {checks}")
     # U-Net: generate (edit_t_idx steps) + basis (1 vjp primal + 1 jvp primal
     # per sweep) + strip (chunks x the remaining steps); decodes: basis + strip
-    check_t2i_launches("9 lcm", "edit", launches, fwd, {
-        "SDUNet": pipe.cfg.edit_t_idx + 1 + 5 + chunks * steps_left,
-        "VAEDecoder": 1 + 5 + chunks, "VAEEncoder": 0}, SD_PER_FWD)
+    check_t2i_launches(tag, "edit", launches, fwd, {
+        "SDUNet": pipe.cfg.edit_t_idx + 1 + sweeps + chunks * steps_left,
+        "VAEDecoder": 1 + sweeps + chunks, "VAEEncoder": 0}, SD_PER_FWD)
+    return launches, pipe, out
+
+
+def phase_lcm_cli(work_dir, image_px=512):
+    """The LCM edit through the CLI at the reference script's settings
+    (scripts/main_T2I_LCM_null_space_projection_nonsemantic.sh), bf16, its
+    mask from a --sampling_mode run, then delta_zt_via_grad from Python on
+    the CLI's pipeline. Returns the launch counts of each run. image_px: the
+    VAE's image size (a CPU rehearsal with a tiny bundle passes its own)."""
+    from loco_edit_tpu_torch.cli.main import main as cli_main
+    from loco_edit_tpu_torch.models.sd import SDUNet, VAEDecoder, VAEEncoder
+
+    argv = lcm_argv(os.path.join(work_dir, "lcm"), "bf16")
+    px = image_px
+    masks = sam_sampling_run("9 lcm", cli_main, argv, px)
+    log(f"[9 lcm] python -m loco_edit_tpu_torch.cli.main {' '.join(argv)}; cuts: {LCM_CUTS}")
+    launches, pipe, out = lcm_cli_edit("9 lcm", argv, px, 5)
+    lat = (1,) + tuple(pipe.latent_shape)
 
     d_vT, d_launches, d_fwd, d_s, d_peak = run_main_path(
-        lambda: pipe.delta_zt_via_grad(out["zt"], for_prompt, edit_prompt, masks[:1]),
+        lambda: pipe.delta_zt_via_grad(out["zt"], *LCM_PROMPTS, masks[:1]),
         SDUNet, VAEDecoder, VAEEncoder)
     d_vT = d_vT.cpu().numpy()
     d_checks = {"shape": d_vT.shape == (1, int(np.prod(lat))),
@@ -1237,6 +1307,39 @@ def phase_lcm_cli(work_dir, image_px=512):
     check_t2i_launches("9 lcm", "delta_zt_via_grad", d_launches, d_fwd,
                        {"SDUNet": 3, "VAEDecoder": 3, "VAEEncoder": 0}, SD_PER_FWD)
     return launches, d_launches
+
+
+# basis sweeps of the f32 LCM edit (fixed, as in the bf16 run)
+LCM_F32_SWEEPS = 5
+
+
+def phase_lcm_f32_cli(work_dir, image_px=512):
+    """The same LCM command at the script's own dtype, --dtype fp32 (the
+    3xTF32 attention route and full-f32 convolutions), reading the mask the
+    bf16 run's --sampling_mode pass cached (copied into its own result
+    folder), with LCM_F32_SWEEPS fixed sweeps. Returns its launch counts."""
+    import glob
+    import shutil
+
+    from loco_edit_tpu_torch.ops.flash_attention import route
+
+    src = os.path.join(work_dir, "lcm")
+    root = os.path.join(work_dir, "lcm_f32")
+    found = glob.glob(os.path.join(src, "**", "mask", "mask.npz"), recursive=True)
+    if len(found) != 1:
+        fail(f"9 lcm f32: expected the bf16 run's cached mask, found {found}")
+    mask_dir = os.path.dirname(found[0])
+    shutil.copytree(mask_dir, os.path.join(root, os.path.relpath(mask_dir, src)))
+    argv = lcm_argv(root, "fp32")
+    cuts = (f"{LCM_F32_SWEEPS} basis sweeps (min_iter = max_iter = {LCM_F32_SWEEPS}; "
+            "the reference: 10-50 until 1e-3)")
+    log(f"[9 lcm f32] python -m loco_edit_tpu_torch.cli.main {' '.join(argv)}; mask: the "
+        f"bf16 run's {os.path.relpath(found[0], work_dir)}; cuts: {cuts}; attention routes "
+        + ", ".join(route(torch.float32, d) for d in (40, 80, 160)))
+    launches, _, _ = lcm_cli_edit("9 lcm f32", argv, image_px, LCM_F32_SWEEPS)
+    log(f"[9 lcm f32] launches on the f32 routes: attention {launches['flash_attention']}, "
+        f"GroupNorm {launches['groupnorm']}")
+    return launches
 
 
 IF_PER_FWD = {"IFUNet": (117, 22), "IFUNet-II": (89, 8)}
@@ -1608,6 +1711,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
         lcm_edit, lcm_delta = phase_lcm_cli(work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lcm_f32 = phase_lcm_f32_cli(work_dir)
+        log(f"[9 lcm f32] phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as work_dir:
@@ -1639,6 +1747,7 @@ def main() -> int:
              "ddpm_cli_group_edit": group_launches, "sd_cli_edit": sd_edit,
              "sd_delta_zt_via_grad": sd_delta, "sd_invert": sd_invert,
              "lcm_cli_edit": lcm_edit, "lcm_delta_zt_via_grad": lcm_delta,
+             "lcm_f32_cli_edit": lcm_f32,
              "if_cli_edit": if_edit, "p2_f32_sam_cli_edit": p2_sam_edit}
     kernels = [
         summarize(rows, "groupnorm", "loco_edit_tpu_torch/csrc/groupnorm.cu",

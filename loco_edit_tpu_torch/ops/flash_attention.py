@@ -9,10 +9,13 @@ JVP rule `_lean_attention_jvp` (attention.py:75-125).
 tensors and the kernel in csrc/flash_attention.cu on CUDA tensors, always.
 Queries and keys may differ in number (N_q, N_kv: the SD cross-attention).
 Its `jvp` is the lean rule: logits-sized tangents stay in the model dtype and
-dW @ V is formed as t @ V - c * out, so dW is never built. Its `backward` is
-that rule's transpose, which is what `jax.linear_transpose` derives in the
-JAX package. Both are plain torch ops, so they run on torch.func's batched
-tensors. The `vmap` rule folds the vmapped dimension into the batch.
+dW @ V is formed as t @ V - c * out, so dW is never built; out is W @ V of
+the rule's own W, as in the JAX rule, not the kernel's output (whose
+rounding differs from W's, by up to ~1e-6 on the 3xTF32 route). Its
+`backward` is that rule's transpose, which is what `jax.linear_transpose`
+derives in the JAX package. Both are plain torch ops, so they run on
+torch.func's batched tensors. The `vmap` rule folds the vmapped dimension
+into the batch.
 """
 
 from __future__ import annotations
@@ -26,22 +29,42 @@ from loco_edit_tpu_torch.ops import _cuda
 
 # 40, 80 and 160 are the SD 1.5 / LCM U-Net's 8-head splits of 320, 640, 1280
 HEAD_DIMS = (16, 32, 40, 64, 80, 128, 160, 256, 512)
-SLICE = 128          # most output columns per block of the kernel (wider D is cut)
+SLICE = 128          # most output columns per block of the bf16 route (wider D is cut)
 
 
 class AttnGeometry(NamedTuple):
-    """csrc/flash_attention.cu's tiling of head dim d (its `Geo<D>`)."""
+    """csrc/flash_attention.cu's bf16 tiling of head dim d (its `tc::Geo<D>`)."""
     slices: int       # blocks across the output columns, one slice each
     dv: int           # output columns per slice: d / slices, at most SLICE
     kd: int           # depth of Q K^T on the bf16 route: d rounded up to 16
     block_k: int      # keys per shared-memory tile
 
 
-def kernel_geometry(d: int) -> AttnGeometry:
-    """The tiling the kernel uses at head dim d: equal output slices of at
-    most SLICE columns (160 = 2 x 80), a zero-padded last 16-deep k-step
-    on the tensor cores where d is not a multiple of 16 (40 -> 48), 32-key
-    tiles above SLICE."""
+class F32Geometry(NamedTuple):
+    """csrc/flash_attention.cu's f32 (3xTF32) tiling of head dim d (its
+    `tf32x3::Rows<D>` for d <= F32_ROWS_MAX_D, `tf32x3::Cols<D>` above)."""
+    warps: int        # warps per block
+    block_q: int      # query rows per block
+    block_k: int      # keys per shared-memory tile
+    cols: int         # output columns (and depth of the partial Q K^T) per warp
+
+
+F32_ROWS_MAX_D = 80  # up to here each warp owns 16 query rows and all d columns
+
+
+def kernel_geometry(d: int, dtype: torch.dtype = torch.bfloat16):
+    """The tiling the kernel uses at head dim d. bf16 (AttnGeometry): equal
+    output slices of at most SLICE columns (160 = 2 x 80), a zero-padded
+    last 16-deep k-step where d is not a multiple of 16 (40 -> 48), 32-key
+    tiles above SLICE. f32 (F32Geometry): up to F32_ROWS_MAX_D, 4 warps of
+    16 query rows each over 32-key tiles (16 at d = 80); above, 32-row query
+    tiles and 16-key tiles, S formed once by 8 warps (d / 32 below 256)
+    that each take d / warps of the depth and of the output columns."""
+    if dtype == torch.float32:
+        if d <= F32_ROWS_MAX_D:
+            return F32Geometry(4, 64, 32 if d <= 64 else 16, d)
+        warps = 8 if d >= 256 else d // 32
+        return F32Geometry(warps, 32, 16, d // warps)
     slices = -(-d // SLICE)
     return AttnGeometry(slices, d // slices, -(-d // 16) * 16, 32 if d > SLICE else 64)
 
@@ -69,22 +92,28 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel route a dtype and head dim take: bf16 runs on the tensor
-    cores, f32 on FMA loops (TF32 would not hold the f32 checks); a head dim
-    above SLICE is cut into output-column slices, one block each; on the
-    tensor cores a head dim that is not a multiple of 16 takes a zero-padded
-    last k-step."""
+    """The kernel route a dtype and head dim take, both on the tensor cores.
+    bf16: a head dim above SLICE is cut into output-column slices, one block
+    each, and one that is not a multiple of 16 takes a zero-padded last
+    k-step. f32: 3xTF32, every product split into TF32 hi and lo parts
+    (rounded to nearest) and run as three MMAs, which keeps f32 accuracy
+    where one TF32 rounding (2^-11) would not; above F32_ROWS_MAX_D the
+    warps split the depth and the output columns (`-<warps>x<cols>-cols`),
+    and S is formed once per tile."""
+    if dtype == torch.float32:
+        geo = kernel_geometry(d, dtype)
+        return ("f32-3xtf32" if geo.cols == d
+                else f"f32-3xtf32-{geo.warps}x{geo.cols}-cols")
     geo = kernel_geometry(d)
-    name = {torch.bfloat16: "bf16-tensor-core", torch.float32: "f32-fma"}[dtype]
-    if dtype == torch.bfloat16 and geo.kd != d:
-        name += f"-k{geo.kd}"
+    name = "bf16-tensor-core" + (f"-k{geo.kd}" if geo.kd != d else "")
     return name if geo.slices == 1 else f"{name}-{geo.slices}x{geo.dv}-slices"
 
 
 def _kernel_layout(t: torch.Tensor) -> bool:
     """Whether the kernel takes t's layout as it is: head dim of stride 1 and,
     on the bf16 route's 16-byte copies, a 16-byte aligned pointer and
-    (b, h, n) strides that are multiples of 8 elements."""
+    (b, h, n) strides that are multiples of 8 elements (the f32 route takes
+    4-byte copies where a view is not 16-byte aligned)."""
     st = t.stride()
     return st[-1] == 1 and (t.dtype is not torch.bfloat16 or (
         t.data_ptr() % 16 == 0 and st[0] % 8 == 0 and st[1] % 8 == 0
@@ -94,9 +123,10 @@ def _kernel_layout(t: torch.Tensor) -> bool:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """Launch csrc/flash_attention.cu. q: (B, H, N_q, D), k, v: (B, H, N_kv,
-    D) CUDA tensors of one dtype (f32 or bf16), head dim of stride 1 (bf16:
-    16-byte aligned, strides multiples of 8), D in HEAD_DIMS, any N_q and
-    N_kv >= 1. Returns a contiguous (B, H, N_q, D) tensor."""
+    D) CUDA tensors of one dtype (f32: the 3xTF32 route, or bf16), head dim
+    of stride 1 (bf16: 16-byte aligned, strides multiples of 8), D in
+    HEAD_DIMS, any N_q and N_kv >= 1. Returns a contiguous (B, H, N_q, D)
+    tensor."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention_cuda: dtype {q.dtype} not supported")
     if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4
@@ -155,12 +185,12 @@ class AttentionFn(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v = inputs
-        ctx.save_for_backward(q, k, v, output)
-        ctx.save_for_forward(q, k, v, output)
+        ctx.save_for_backward(q, k, v)
+        ctx.save_for_forward(q, k, v)
 
     @staticmethod
     def jvp(ctx, dq, dk, dv):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v = ctx.saved_tensors
         scale = _scale(q.shape[-1])
         qs, ks, w = _weights(q, k)
         dout = None
@@ -173,7 +203,7 @@ class AttentionFn(torch.autograd.Function):
                 dl = term if dl is None else dl + term
             t = w * dl.to(q.dtype)
             c = t.float().sum(dim=-1, keepdim=True)
-            dout = torch.matmul(t, v) - c.to(q.dtype) * out
+            dout = torch.matmul(t, v) - c.to(q.dtype) * torch.matmul(w, v)
         if dv is not None:
             term = torch.matmul(w, dv)
             dout = term if dout is None else dout + term
@@ -181,7 +211,7 @@ class AttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v = ctx.saved_tensors
         scale = _scale(q.shape[-1])
         qs, ks, w = _weights(q, k)
         g = g.to(q.dtype)
@@ -189,7 +219,8 @@ class AttentionFn(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             gv = torch.matmul(w.transpose(-1, -2), g)
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            # dout = t @ v - c * out, t = w * dl, c = rowsum(t)
+            # dout = t @ v - c * out, t = w * dl, c = rowsum(t), out = w @ v
+            out = torch.matmul(w, v)
             gc = -(g.float() * out.float()).sum(dim=-1, keepdim=True)
             gt = torch.matmul(g, v.transpose(-1, -2)) + gc.to(q.dtype)
             gdl = w * gt

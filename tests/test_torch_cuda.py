@@ -8,8 +8,8 @@ skips with a reason otherwise. Run on a machine with an NVIDIA GPU:
 import pytest
 import torch
 
-from loco_edit_tpu_torch.ops.flash_attention import (AttentionFn, attention_plain,
-                                                     flash_attention_cuda)
+from loco_edit_tpu_torch.ops.flash_attention import (HEAD_DIMS, AttentionFn, attention_plain,
+                                                     flash_attention_cuda, kernel_geometry)
 from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_cuda,
                                                group_norm_plain)
 from _torch_ddpm_shapes import DDPM_ATTN_SHAPES, DDPM_GN_EPS, DDPM_GN_SHAPES
@@ -38,9 +38,12 @@ def attn_tol(ref: torch.Tensor, dtype, cap: float = ATOL[torch.bfloat16] / 2) ->
     return min(cap, 2 ** -6 * ref.float().abs().max().item())
 
 
-def attn_mutant_errs(q, k, v, tile: int = 64, scale: float = 1.03) -> list[float]:
-    """How far a kernel that skipped the last key tile, or scaled the logits
-    by `scale`, would land from the plain version (f32, the same inputs)."""
+def attn_mutant_errs(q, k, v, tile: int | None = None, scale: float = 1.03) -> list[float]:
+    """How far a kernel that skipped the last key tile (of `tile` keys, by
+    default the route's: kernel_geometry(D, dtype).block_k), or scaled the
+    logits by `scale`, would land from the plain version (f32, the same
+    inputs)."""
+    tile = tile or kernel_geometry(q.shape[-1], q.dtype).block_k
     q, k, v = q.float(), k.float(), v.float()
     ref = attention_plain(q, k, v)
     keep = k.shape[2] - ((k.shape[2] - 1) % tile + 1)
@@ -132,9 +135,13 @@ def test_groupnorm_rejects_misaligned_input():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 8, 256, 64), (1, 8, 64, 64), (45, 8, 256, 64),
-                                   (2, 3, 100, 16), (1, 2, 77, 128), (1, 2, 65, 32)])
+@pytest.mark.parametrize("shape", sorted(
+    {(1, 8, 256, 64), (1, 8, 64, 64), (45, 8, 256, 64), (2, 3, 100, 16), (1, 2, 77, 128),
+     (1, 2, 65, 32)}
+    | {(2, 2, 77, d) for d in HEAD_DIMS} | {(1, 2, 1101, d) for d in HEAD_DIMS}))
 def test_attention_kernel_matches_plain(shape, dtype):
+    """Both routes at the P2 shapes and at every head dim with N = 77 and
+    1101 (ragged last key and query tiles on every route's tiling)."""
     g = _card()
     q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(3))
     got = flash_attention_cuda(q, k, v)
@@ -157,19 +164,27 @@ def test_attention_bf16_ragged_tiles(n, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 256, 257])
-def test_attention_wide_heads_on_strided_views(n, d, dtype):
-    """The wide-head route (D / 128 output-column slices) at ragged N, on
-    head-split views of one packed qkv tensor, against the plain version
-    (attn_tol); one launch per call."""
+@pytest.mark.parametrize("aligned", [True, False])
+def test_attention_wide_heads_on_strided_views(aligned, n, d, dtype):
+    """Every head dim (the wide-head routes: bf16 D / 128 output-column
+    slices, f32 warps that split the columns) at ragged N, on head-split
+    views of one packed qkv tensor, 16-byte aligned or one element off.
+    The f32 route takes either view as it is (4-byte copies for the second);
+    AttentionFn hands the bf16 route a copy of a misaligned one. Against
+    the plain version (attn_tol); one launch per call."""
     g = _card()
-    qkv = torch.randn(2, n, 3 * 2 * d, device="cuda", generator=g).to(dtype)
+    off = 0 if aligned else 1
+    flat = torch.randn(off + 2 * n * 6 * d, device="cuda", generator=g).to(dtype)
+    qkv = flat[off:].view(2, n, 6 * d)
     q, k, v = (t.reshape(2, n, 2, d).transpose(1, 2) for t in qkv.split(2 * d, -1))
-    before = flash_attention_cuda.launches
-    got = flash_attention_cuda(q, k, v)
+    before, copies = flash_attention_cuda.launches, AttentionFn.layout_copies
+    got = AttentionFn.apply(q, k, v)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    copied = 0 if aligned or dtype == torch.float32 else 3
+    assert AttentionFn.layout_copies - copies == copied
     ref = attention_plain(q, k, v)
     assert (got.float() - ref.float()).abs().max().item() <= attn_tol(ref, dtype)
 
@@ -328,9 +343,8 @@ def test_attention_cross_lengths(nq, nkv, d, dtype):
     ref = attention_plain(q, k, v).float()
     tol = attn_tol(ref, dtype, cap=float("inf"))
     assert (got.float() - ref).abs().max().item() <= tol
-    tile = 64 if d <= 128 else 32
-    if nkv > tile:
-        assert min(attn_mutant_errs(q, k, v, tile)) > tol
+    if nkv > kernel_geometry(d, dtype).block_k:
+        assert min(attn_mutant_errs(q, k, v)) > tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -355,14 +369,15 @@ def test_attention_cross_on_head_split_views(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cross", [False, True])
 @pytest.mark.parametrize("d,nq", [(40, 4096), (40, 100), (80, 1024), (80, 65),
-                                  (160, 256), (160, 64), (160, 33)])
+                                  (160, 256), (160, 64), (160, 33), (16, 100), (32, 65),
+                                  (64, 257), (128, 130), (256, 100), (512, 100)])
 def test_attention_head_dims_40_80_160(d, nq, cross, dtype):
-    """The SD 1.5 / LCM U-Net's head dims (8 heads of 320, 640, 1280) on
-    both routes, N_kv = N_q and N_kv = 77, on head-split views of packed
-    projections as the U-Net makes them: within the plain version's
-    tolerance, every output column written (D = 160: two slices of 80), and
-    a kernel that skipped the last key tile or scaled the logits by 1.03
-    would miss it."""
+    """The SD 1.5 / LCM U-Net's head dims (8 heads of 320, 640, 1280), and
+    every other head dim, on both routes, N_kv = N_q and N_kv = 77, on
+    head-split views of packed projections as the U-Net makes them: within
+    the plain version's tolerance, every output column written (bf16 D =
+    160: two slices of 80), and a kernel that skipped the last key tile or
+    scaled the logits by 1.03 would miss it."""
     g = _card()
     nkv = 77 if cross else nq
     x = torch.randn(2, nq, 8 * d, device="cuda", generator=g).to(dtype)
@@ -377,9 +392,8 @@ def test_attention_head_dims_40_80_160(d, nq, cross, dtype):
     tol = attn_tol(ref, dtype, cap=float("inf"))
     assert torch.isfinite(got).all()
     assert (got.float() - ref).abs().max().item() <= tol
-    tile = 64 if d <= 128 else 32
-    if nkv > tile:
-        assert min(attn_mutant_errs(q, k, v, tile)) > tol
+    if nkv > kernel_geometry(d, dtype).block_k:
+        assert min(attn_mutant_errs(q, k, v)) > tol
 
 
 @pytest.mark.parametrize("which", ["unet", "decoder", "encoder"])
