@@ -105,6 +105,24 @@ Phases (any failure raises; nothing is caught and skipped):
      with --mask_index 0. Launches: 65 GN + 4 attention per P2 forward (the
      f32 routes); forwards what the steps predict; unit-norm finite
      directions, strips and artifacts.
+ 13. The port's edit server (serve.py: EditService behind make_server on
+     127.0.0.1, port 0, in a thread), over HTTP. FFHQ_P2 at full width,
+     bf16, 100/100 steps, rank 5 + null 5, 10 fixed sweeps: /health; /edit
+     with a seed and a mask_bbox (uint8); the same request again (the
+     cached basis: the same bits); /edit_batch of two seeds and an image,
+     each item held to its own /edit within BF16_FWD_RTOL (relative L2);
+     /invert, the same bits as pipe.invert; /segment with seeded SAM ViT-L
+     at 256 px; one /edit under utils/logger.py::device_trace, whose trace
+     gives the device's busy share of the request's window; then SSIM,
+     masked MSE and LPIPS (alex, a seeded state_dict it writes) of a served
+     strip against its original, card vs CPU. LCM Dreamshaper v7 at full
+     width, bf16, 4 steps, 5 fixed sweeps: /edit with "pixel" true and the
+     same request with "pixel" false; the uint8 strip must equal to_uint8
+     of the float strip. Each request's host seconds, server secs,
+     edits_served and peak memory printed; its forwards and launches held
+     to its steps. At the end of phase 10, `--verify_load all` over its
+     IF-I-M and IF-II-M checkpoints and a seeded LPIPS file: every file
+     classified, converted with full key coverage, finite on the card.
 
 TF32: the kernel-vs-plain and card-vs-CPU checks (phases 2, 3 and those of
 7, 9, 10 and 11) run with TF32 off for matmuls and convolutions, and phases
@@ -114,8 +132,8 @@ itself sets (its f32 entry points turn TF32 off: core/device.py).
 
 Launch counts are set to 0 just before each main path (phases 4, 6 edit,
 6 group, 8 edit, 8 delta, 8 invert, 9 edit, 9 delta, 9 f32 edit, 10 edit,
-12 edit) and
-read just after. The last three lines of standard output are the card's name and
+12 edit, and each request of 13) and read just after; phase 13's sum per
+server is the kernels line's serve_p2 and serve_lcm. The last three lines of standard output are the card's name and
 power limit (nvidia-smi), the kernels' JSON line and the result line.
 """
 
@@ -1652,6 +1670,373 @@ def phase_p2_sam_cli(work_dir, model_name="FFHQ_P2", image_px=256):
     return launches
 
 
+# -- phase 13: the port's edit server ------------------------------------------
+
+# GN and attention launches per P2 forward
+P2_PER_FWD = {"ADMUNet": (65, 4)}
+# the served P2 edit: 10 fixed basis sweeps (phase 4's), rank 5 + null 5
+SERVE_SWEEPS = 10
+SERVE_LCM_SWEEPS = 5
+# LPIPS card vs CPU, relative to the larger value (full-f32 convolutions)
+LPIPS_RTOL = 1e-4
+
+
+def http_json(url, payload=None):
+    """GET (payload None) or POST a JSON request; fail unless it answers 200.
+    Returns (the decoded answer, host seconds)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=900) as r:
+            out = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        fail(f"{url} answered {e.code}: {e.read()[:500]!r}")
+    return out, time.perf_counter() - t0
+
+
+def b64_array(a: np.ndarray) -> str:
+    import base64
+
+    return base64.b64encode(np.ascontiguousarray(a, np.float32).tobytes()).decode()
+
+
+def strips_of(out) -> dict:
+    import base64
+
+    dt = np.uint8 if out["dtype"] == "uint8" else np.float32
+    return {int(pc): np.frombuffer(base64.b64decode(b), dt).reshape(out["shape"])
+            for pc, b in out["strips"].items()}
+
+
+def start_server(service):
+    """The port's server over `service` on 127.0.0.1, port 0, in a thread."""
+    import threading
+
+    from loco_edit_tpu_torch.serve import make_server
+
+    srv = make_server(service, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def served(tag, what, url, payload, model_classes, per_forward, predicted_fwd, svc):
+    """One request on the main path (run_main_path's counts), its forwards and
+    launches held to predicted_fwd x per_forward; prints the host seconds,
+    the server's secs, edits_served and the peak memory. Returns (answer,
+    launches)."""
+    out, launches, fwd, host_s, peak = run_main_path(lambda: http_json(url, payload)[0],
+                                                     *model_classes)
+    log(f"[{tag}] {what}: host {host_s:.3f} s, server secs {out.get('secs')}, "
+        f"edits_served {svc.edits_served}, peak device memory {peak:.2f} GiB")
+    check_t2i_launches(tag, what, launches, fwd, predicted_fwd, per_forward)
+    return out, launches
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def write_lpips_checkpoint(path: str, net: str = "alex", seed: int = 0) -> str:
+    """A seeded LPIPS state_dict in the lpips package's naming
+    (net.sliceK.I.{weight,bias} + linK.model.1.weight), written to path."""
+    from loco_edit_tpu_torch.utils.lpips import LPIPS, _ALEX_CONVS, _VGG_CONVS
+
+    g = torch.Generator().manual_seed(seed)
+    model = LPIPS(net)
+    convs = _ALEX_CONVS if net == "alex" else _VGG_CONVS
+    slices = ((1, 2, 3, 4, 5) if net == "alex"
+              else (1, 1, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5))
+    sd = {}
+    for j, (fi, sl) in enumerate(zip(convs, slices)):
+        conv = model.trunk.convs[j]
+        fan_in = conv.weight[0].numel()
+        sd[f"net.slice{sl}.{fi}.weight"] = torch.randn(conv.weight.shape, generator=g) * (
+            2.0 / fan_in) ** 0.5
+        sd[f"net.slice{sl}.{fi}.bias"] = torch.randn(conv.bias.shape, generator=g) * 0.05
+    for k in range(5):
+        c = getattr(model, f"lin{k}").numel()
+        sd[f"lin{k}.model.1.weight"] = torch.rand(1, c, 1, 1, generator=g)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(sd, path)
+    return path
+
+
+def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
+    """Phase 13, P2: the port's server (serve.py's EditService behind
+    make_server) on the full-width FFHQ_P2 with seeded bf16 weights at the
+    reference's 100/100 steps, rank 5 + null 5, SERVE_SWEEPS fixed sweeps,
+    answering /health, /edit (uint8), the same /edit again (the cached
+    basis, the same bits), /edit_batch of two seeds and an image (each item
+    against its own /edit), /invert (against pipe.invert, the same bits),
+    /segment (seeded SAM ViT-L), and one /edit under device_trace (the
+    device's busy share of its window); then the metrics and LPIPS of the
+    served strips, card against CPU. Returns the launches of every request."""
+    from loco_edit_tpu_torch.cli.args import parse_args, preset
+    from loco_edit_tpu_torch.core.rng import RngStream
+    from loco_edit_tpu_torch.models.adm import ADMUNet
+    from loco_edit_tpu_torch.serve import EditService
+    from loco_edit_tpu_torch.utils import metrics
+    from loco_edit_tpu_torch.utils.io import to_uint8
+    from loco_edit_tpu_torch.utils.logger import device_busy_share, device_trace
+    from loco_edit_tpu_torch.utils.lpips import LPIPSMetric
+
+    tag = "13 serve p2"
+    argv = ["--model_name", model_name, "--dataset_name", "Random", "--dtype", "bf16",
+            "--device", device, "--for_steps", "100", "--inv_steps", "100",
+            "--edit_t", "0.6", "--performance_boosting_t", "0.2",
+            "--x_space_guidance_scale", "0.5", "--x_space_guidance_num_step", "16",
+            "--vis_num", "4", "--pca_rank", "5", "--pca_rank_null", "5",
+            "--null_space_projection", "true", "--seed", "0",
+            "--result_folder", os.path.join(work_dir, "serve_p2")]
+    t0 = time.perf_counter()
+    svc = EditService(preset(parse_args(argv)))
+    cfg = svc.pipe.cfg
+    cfg.min_iter = cfg.max_iter = SERVE_SWEEPS
+    cfg.convergence_threshold = 0.0
+    srv, url = start_server(svc)
+    h, w, c = svc.sample_shape
+    log(f"[{tag}] python -m loco_edit_tpu_torch.serve --port 0 {' '.join(argv)}; "
+        f"{SERVE_SWEEPS} fixed sweeps; service built in {time.perf_counter() - t0:.2f} s; {url}")
+    box = [h // 4, 3 * h // 4, w // 4, 3 * w // 4]
+    mask = np.zeros((1, h, w, c), bool)
+    mask[:, box[0]:box[1], box[2]:box[3]] = True
+    t_idx, steps = svc.pipe.edit_t_idx, cfg.for_steps
+    strips_fwd, inv_fwd = steps - 1 - t_idx, cfg.inv_steps - 2
+    fresh = {"ADMUNet": t_idx + 1 + SERVE_SWEEPS + strips_fwd}
+    cached = {"ADMUNet": t_idx + strips_fwd}
+    n_frames = cfg.pca_rank * (2 * cfg.vis_num + 1)
+    total = {}
+    try:
+        health, host_s = http_json(url + "/health")
+        log(f"[{tag}] /health: {health} ({host_s * 1e3:.1f} ms)")
+        if health != {"ok": True, "engine": "uncond", "edits_served": 0}:
+            fail(f"{tag}: /health answered {health}")
+
+        req = {"seed": 1, "mask_bbox": box}
+        answers = []
+        for what, fwd in (("/edit", fresh), ("/edit again (cached basis)", cached)):
+            svc.pipe._boost_calls = 0
+            out, launches = served(tag, what, url + "/edit", req, (ADMUNet,), P2_PER_FWD,
+                                   fwd, svc)
+            add_launches(total, launches)
+            answers.append(out)
+        first = strips_of(answers[0])
+        checks = {
+            "fields": sorted(answers[0]) == ["dtype", "null_space_projection", "secs",
+                                             "shape", "strips"],
+            "uint8": answers[0]["dtype"] == "uint8"
+            and answers[0]["shape"] == [n_frames // cfg.pca_rank, h, w, c],
+            "projected": answers[0]["null_space_projection"] is True,
+            "pcs": sorted(first) == list(range(cfg.pca_rank)),
+            "same_bits": all(np.array_equal(first[pc], s)
+                             for pc, s in strips_of(answers[1]).items()),
+        }
+        log(f"[{tag}] /edit: server secs {answers[0]['secs']} fresh, {answers[1]['secs']} "
+            f"with the cached basis; checks {checks}")
+        if not all(checks.values()):
+            fail(f"{tag}: /edit checks failed: {checks}")
+
+        # the image item: a sample of the model, posted in f32 unclipped. The
+        # seeded weights put their samples at |x| up to ~850; an image in
+        # [-1, 1] inverts to an x_T with spikes near 16, whose regeneration
+        # to edit_t differs ~6e-2 (relative L2) between batch 1 and batch 3
+        # in bf16, against ~1e-3 from a sample (PERF.md, section 6)
+        x0 = svc.pipe.generate(RngStream.from_seed(4).normal((1, h, w, c), device=device),
+                               0, None).cpu().numpy()
+        items = [{"seed": 2, "mask_bbox": box}, {"seed": 3, "mask_bbox": box},
+                 {"image": b64_array(x0), "mask_bbox": box}]
+        svc.pipe._boost_calls = 0
+        batch, launches = served(
+            tag, "/edit_batch (2 seeds + 1 image)", url + "/edit_batch",
+            {"items": items, "pixel": False}, (ADMUNet,), P2_PER_FWD,
+            {"ADMUNet": inv_fwd + t_idx + len(items) * (1 + SERVE_SWEEPS + strips_fwd)}, svc)
+        add_launches(total, launches)
+        errs = []
+        for i, it in enumerate(items):
+            svc.pipe._boost_calls = i           # the noise stream of its batch place
+            single, launches = served(
+                tag, f"/edit of batch item {i}", url + "/edit", dict(it, pixel=False),
+                (ADMUNet,), P2_PER_FWD,
+                {"ADMUNet": (inv_fwd if "image" in it else 0) + t_idx + strips_fwd}, svc)
+            add_launches(total, launches)
+            got, ref = strips_of(batch["results"][i]), strips_of(single)
+            errs.append(max(float(np.linalg.norm(got[pc] - ref[pc]) / np.linalg.norm(ref[pc]))
+                            for pc in ref))
+        log(f"[{tag}] /edit_batch items against their /edit (relative L2, each strip): "
+            f"{[f'{e:.2e}' for e in errs]}, tol {BF16_FWD_RTOL:.0e}; batch server secs "
+            f"{batch['secs']}")
+        if not (batch["null_space_projection"] and all(e <= BF16_FWD_RTOL for e in errs)):
+            fail(f"{tag}: /edit_batch items disagree with /edit: {errs}")
+
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            inv, launches = served(tag, "/invert", url + "/invert", {"image": b64_array(x0)},
+                                   (ADMUNet,), P2_PER_FWD, {"ADMUNet": inv_fwd}, svc)
+            add_launches(total, launches)
+            ref = svc.pipe.invert(x0).cpu().numpy()
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        import base64
+
+        xT = np.frombuffer(base64.b64decode(inv["xT"]), np.float32).reshape(inv["shape"])
+        log(f"[{tag}] /invert: shape {inv['shape']}, max |xT| {float(np.abs(xT).max()):.3f}, "
+            f"the same bits as pipe.invert: {np.array_equal(xT, ref)} (max |diff| "
+            f"{float(np.abs(xT - ref).max()):.2e})")
+        if not np.array_equal(xT, ref):
+            fail(f"{tag}: /invert differs from pipe.invert on the same input")
+
+        seg, launches = served(tag, "/segment (seeded SAM ViT-L)", url + "/segment",
+                               {"image": b64_array(x0)}, (ADMUNet,), P2_PER_FWD,
+                               {"ADMUNet": 0}, svc)
+        t = svc._sam.timings
+        log(f"[{tag}] /segment: masks {seg['shape']}; encode {t['encode'] * 1e3:.1f} ms, "
+            f"decode {t['decode'] * 1e3:.1f} ms over {t['decode_batches']} batches, host "
+            f"filters {t['filter'] * 1e3:.1f} ms, {t['kept']} kept of {t['candidates']}")
+        if not (len(seg["shape"]) == 3 and seg["shape"][1:] == [h, w] and seg["shape"][0] >= 1):
+            fail(f"{tag}: /segment answered masks of shape {seg['shape']}")
+
+        trace_dir = os.path.join(work_dir, "trace")
+        svc.pipe._boost_calls = 0
+        with device_trace(trace_dir, cuda=device == "cuda"):
+            traced, launches = served(tag, "/edit under device_trace", url + "/edit", req,
+                                      (ADMUNet,), P2_PER_FWD, cached, svc)
+        add_launches(total, launches)
+        path = os.path.join(trace_dir, "trace.json")
+        busy = device_busy_share(path)
+        log(f"[{tag}] device trace of one served /edit (cached basis): window "
+            f"{busy['window_ms']:.1f} ms, device busy {busy['busy_ms']:.1f} ms in "
+            f"{busy['events']} kernel/copy events: busy share {busy['share']:.3f}, idle "
+            f"{1 - busy['share']:.3f}; server secs {traced['secs']}; trace "
+            f"{os.path.getsize(path) / 2 ** 20:.1f} MiB")
+        if device == "cuda" and not (busy["events"] > 0 and 0 < busy["share"] <= 1):
+            fail(f"{tag}: the device trace holds no device work: {busy}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+    # eval of the image item's float strip (pc 0) against its original, both
+    # clipped to [0, 1] as their PNGs would be
+    strip = np.clip((strips_of(batch["results"][2])[0] + 1) / 2, 0, 1)
+    orig = np.repeat(np.clip((x0 + 1) / 2, 0, 1), strip.shape[0], axis=0)
+    m = np.repeat(mask, strip.shape[0], axis=0)
+    lp_path = write_lpips_checkpoint(os.path.join(work_dir, "lpips", "alex.pth"))
+    res = {}
+    with tf32_convs(False):
+        for dev in (device, "cpu"):
+            a = torch.from_numpy(strip).to(dev)
+            b = torch.from_numpy(orig).to(dev)
+            res[dev] = {
+                "ssim": metrics.ssim(a, b).cpu(),
+                "mse_off": metrics.masked_mse(a, b, torch.from_numpy(~m).to(dev)).cpu(),
+                "mse_in": metrics.masked_mse(a, b, torch.from_numpy(m).to(dev)).cpu(),
+                "lpips": LPIPSMetric.from_torch_file(lp_path, device=dev)(
+                    a, b, normalize=True).cpu(),
+            }
+    errs = {k: rel_err(res[device][k], res["cpu"][k]) for k in res["cpu"]}
+    log(f"[{tag}] eval of the image item's strip ({strip.shape[0]} frames, {h} px) against "
+        f"its original, card vs CPU (relative to max |CPU|): {errs}; means on the card: "
+        + ", ".join(f"{k} {float(v.mean()):.4f}" for k, v in res[device].items()))
+    bad = {k: e for k, e in errs.items() if not e <= (LPIPS_RTOL if k == "lpips" else 1e-5)}
+    if bad:
+        fail(f"{tag}: metrics on the card disagree with the CPU: {bad}")
+    del svc
+    return total
+
+
+def phase_serve_lcm(work_dir, model_name="LCM_Dreamshaper_v7", device="cuda"):
+    """Phase 13, LCM: the port's server on the full-width LCM Dreamshaper v7
+    with seeded bf16 weights (4 steps, edit_t_idx 2, w 6.5, rank 5 + null 5
+    non-semantic, x-space guidance 0.4 x 24, vis_num 1, SERVE_LCM_SWEEPS
+    fixed sweeps): one /edit with "pixel" true and the same request with
+    "pixel" false; the uint8 strip must be to_uint8 of the float strip.
+    Returns the launches."""
+    from loco_edit_tpu_torch.cli.args import parse_args, preset
+    from loco_edit_tpu_torch.models.sd import SDUNet, VAEDecoder, VAEEncoder
+    from loco_edit_tpu_torch.serve import EditService
+    from loco_edit_tpu_torch.utils.io import to_uint8
+
+    tag = "13 serve lcm"
+    argv = ["--model_name", model_name, "--dataset_name", "Random", "--dtype", "bf16",
+            "--device", device, "--guidance_scale", "7.5", "--num_inference_steps", "4",
+            "--edit_t_idx", "2", "--x_space_guidance_scale", "0.4",
+            "--x_space_guidance_num_step", "24", "--pca_rank", "5", "--pca_rank_null", "5",
+            "--non_semantic", "true", "--null_space_projection", "true", "--vis_num", "1",
+            "--use_yh_custom_scheduler", "false", "--seed", "0",
+            "--result_folder", os.path.join(work_dir, "serve_lcm")]
+    t0 = time.perf_counter()
+    svc = EditService(preset(parse_args(argv)))
+    cfg = svc.pipe.cfg
+    cfg.min_iter = cfg.max_iter = SERVE_LCM_SWEEPS
+    srv, url = start_server(svc)
+    px = svc.mask_shape[1]
+    log(f"[{tag}] python -m loco_edit_tpu_torch.serve --port 0 {' '.join(argv)}; "
+        f"{SERVE_LCM_SWEEPS} fixed sweeps; service built in {time.perf_counter() - t0:.2f} s; "
+        f"mask space {svc.mask_shape} (from the decoder's configuration)")
+    req = {"seed": 0, "for_prompt": LCM_PROMPTS[0], "semantic": False, "sample_name": "lcm",
+           "mask_bbox": [px // 4, 3 * px // 4, px // 4, 3 * px // 4]}
+    n_frames = 2 * cfg.vis_num + 1
+    chunks = -(-n_frames // cfg.memory_bound)
+    steps_left = len(svc.pipe.grid) - cfg.edit_t_idx
+    fwd = {"SDUNet": cfg.edit_t_idx + 1 + SERVE_LCM_SWEEPS + chunks * steps_left,
+           "VAEDecoder": 1 + SERVE_LCM_SWEEPS + chunks, "VAEEncoder": 0}
+    total, answers = {}, {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for pixel in (True, False):
+            svc.pipe._noise_calls = 0       # the same inter-step noise both times
+            out, launches = served(tag, f"/edit pixel {str(pixel).lower()}", url + "/edit",
+                                   dict(req, pixel=pixel), (SDUNet, VAEDecoder, VAEEncoder),
+                                   SD_PER_FWD, fwd, svc)
+            add_launches(total, launches)
+            answers[pixel] = out
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        srv.shutdown()
+        srv.server_close()
+    u8, f32 = strips_of(answers[True])[0], strips_of(answers[False])[0]
+    ref = to_uint8(f32)
+    checks = {"uint8": answers[True]["dtype"] == "uint8" and u8.shape == (n_frames, px, px, 3),
+              "float": answers[False]["dtype"] == "float32" and bool(np.isfinite(f32).all()),
+              "projected": answers[True]["null_space_projection"] is True,
+              "pixel_output": np.array_equal(u8, ref)}
+    log(f"[{tag}] the device's uint8 strip against to_uint8 of the float strip: "
+        f"{int((u8 != ref).sum())} of {u8.size} values differ; checks {checks}")
+    if not all(checks.values()):
+        fail(f"{tag}: LCM pixel_output checks failed: {checks}")
+    del svc
+    return total
+
+
+def phase_verify_all(root, device="cuda"):
+    """Phase 13, --verify_load all over a directory of seeded checkpoints
+    (phase 10's IF-I-M and IF-II-M, a seeded LPIPS): every file classified,
+    converted with full key coverage and run forward (finite) on the card."""
+    import argparse
+
+    from loco_edit_tpu_torch.cli.verify_load import verify_checkpoint
+
+    write_lpips_checkpoint(os.path.join(root, "lpips", "alex.pth"))
+    t0 = time.perf_counter()
+    rep = verify_checkpoint(argparse.Namespace(
+        verify_load="all", checkpoint_path=root, model_name="", no_oracle=False,
+        device=device))
+    fams = {os.path.relpath(r["checkpoint"], root): (r.get("family"), r.get("ok"),
+                                                     r.get("params"), r.get("forward"))
+            for r in rep["reports"]}
+    log(f"[13 verify_all] {time.perf_counter() - t0:.1f} s over {rep['found']} files: {fams}")
+    want = {"if_stage1.pt": "ifm", "if_stage2.pt": "ifm", os.path.join("lpips", "alex.pth"):
+            "lpips"}
+    if not (rep["ok"] and {k: v[0] for k, v in fams.items()} == want):
+        fail(f"13 verify_all: {rep}")
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -1732,6 +2117,8 @@ def main() -> int:
             rows += phase_if_kernels_and_forward(*ckpts)
         torch.cuda.empty_cache()
         if_edit = phase_if_cli(work_dir, *ckpts)
+        torch.cuda.empty_cache()
+        phase_verify_all(work_dir)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1742,13 +2129,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work_dir:
         p2_sam_edit = phase_p2_sam_cli(work_dir)
     log(f"[12 p2 sam] phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work_dir:
+        serve_p2 = phase_serve_p2(work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_lcm = phase_serve_lcm(work_dir)
+    log(f"[13 serve] phase: {time.perf_counter() - t0:.1f} s")
 
     paths = {"p2_flagship": p2_launches, "ddpm_cli_edit": edit_launches,
              "ddpm_cli_group_edit": group_launches, "sd_cli_edit": sd_edit,
              "sd_delta_zt_via_grad": sd_delta, "sd_invert": sd_invert,
              "lcm_cli_edit": lcm_edit, "lcm_delta_zt_via_grad": lcm_delta,
              "lcm_f32_cli_edit": lcm_f32,
-             "if_cli_edit": if_edit, "p2_f32_sam_cli_edit": p2_sam_edit}
+             "if_cli_edit": if_edit, "p2_f32_sam_cli_edit": p2_sam_edit,
+             "serve_p2": serve_p2, "serve_lcm": serve_lcm}
     kernels = [
         summarize(rows, "groupnorm", "loco_edit_tpu_torch/csrc/groupnorm.cu",
                   "loco_edit_tpu/ops/pallas/groupnorm_stats.py:79",

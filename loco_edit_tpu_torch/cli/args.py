@@ -6,9 +6,10 @@ JAX_PLATFORMS: the card ("cuda", the default) or "cpu".
 
 The port runs the unconditional engines and the SD, LCM and DeepFloyd-IF
 engines, with SAM masks (the two-phase --sampling_mode / --mask_index
-protocol). `check_supported` raises NotImplementedError, naming the
-ROADMAP.md item that ports it, for every flag set to a value this port
-cannot honour yet; no flag is silently ignored.
+protocol), `--verify_load`, `--trace_dir` and `--pixel_output`.
+`check_supported` raises NotImplementedError, naming the ROADMAP.md item
+that ports it, for every flag set to a value this port cannot honour yet
+(the mesh flags); no flag is silently ignored.
 """
 
 from __future__ import annotations
@@ -145,7 +146,7 @@ def parse_args(argv=None):
              "first command to run on a machine with real weights "
              "(docs/MIGRATION.md)")
     add("--sampling_mode", type=str2bool, default=False)
-    # a device trace of the whole run into this dir (not ported: check_supported)
+    # a torch.profiler trace of the whole run, <trace_dir>/trace.json
     add("--trace_dir", type=str, default="")
 
     # mask segmentation
@@ -181,8 +182,6 @@ UNPORTED = {
     "mesh_probe": (0, "Queue A item 15 (core/mesh.py, parallel/)"),
     "mesh_data": (0, "Queue A item 15 (core/mesh.py, parallel/)"),
     "mesh_sp": (0, "Queue A item 15 (parallel/sp.py)"),
-    "trace_dir": ("", "Queue A item 15 (utils/logger.py)"),
-    "verify_load": ("", "Queue A item 14 (cli/verify_load.py)"),
 }
 
 
@@ -193,10 +192,6 @@ def check_supported(args) -> None:
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)!r}: not ported yet, see ROADMAP.md {item}")
-    if args.pixel_output and ("LCM" in args.model_name or "DeepFloyd" in args.model_name):
-        raise NotImplementedError(
-            f"--pixel_output with {args.model_name!r}: not ported yet, see "
-            "ROADMAP.md Queue A item 15")
 
 
 def preset(args):

@@ -118,14 +118,28 @@ def _sam_mask(args, x0, make_image=None):
 
 
 def main(argv=None):
-    """Parse, check, preset and dispatch. Returns main_dispatch's results."""
+    """Parse, check, preset and dispatch. Returns main_dispatch's results,
+    or with --verify_load the verifier's report. With --trace_dir the whole
+    run is traced (utils/logger.py::device_trace: CPU activity, plus the
+    card's when the run is on it) into <trace_dir>/trace.json."""
     from loco_edit_tpu_torch.cli.args import check_supported, parse_args, preset
     from loco_edit_tpu_torch.core.device import resolve_device
 
     args = parse_args(argv)
     check_supported(args)
-    resolve_device(args.device)      # no card and no --device cpu: raise now
-    return main_dispatch(preset(args))
+    device = resolve_device(args.device)   # no card and no --device cpu: raise now
+    if args.verify_load:
+        from loco_edit_tpu_torch.cli.verify_load import verify_checkpoint
+
+        return verify_checkpoint(args)
+    args = preset(args)
+    if args.trace_dir:
+        from loco_edit_tpu_torch.utils.logger import device_trace
+
+        trace_dir, args.trace_dir = args.trace_dir, ""
+        with device_trace(trace_dir, cuda=device.type == "cuda"):
+            return main_dispatch(args)
+    return main_dispatch(args)
 
 
 def main_dispatch(args) -> dict:
@@ -230,6 +244,7 @@ def build_lcm_pipeline(args):
         non_semantic=args.non_semantic, use_sega=args.use_sega,
         memory_bound=args.memory_bound,
         probe_chunk=args.probe_chunk or None,
+        pixel_output=args.pixel_output,
         result_folder=args.result_folder)
     pipe = LCMEditPipeline(b["unet_apply"], b["decode"], b["prompt_encoder"], cfg,
                            rng, latent_shape=b["latent_shape"], device=args.device)
@@ -255,7 +270,8 @@ def build_if_pipeline(args):
         null_space_projection=args.null_space_projection,
         tilda_v_score_type=args.tilda_v_score_type or "(for-edit)-direct",
         jacobian=args.jacobian, probe_chunk=args.probe_chunk or None,
-        memory_bound=args.memory_bound, result_folder=args.result_folder)
+        memory_bound=args.memory_bound, pixel_output=args.pixel_output,
+        result_folder=args.result_folder)
     pipe = IFEditPipeline(b["unet_apply"], b["prompt_encoder"], cfg, rng,
                           sample_shape=b["sample_shape"], superres=b["superres"],
                           device=args.device)

@@ -11,8 +11,10 @@ masked-DiffEdit and SEGA ablation samplers, and the stage-2 upscaler hook
 
 Randomness comes from named forks of the run's RngStream with the JAX
 package's stream names ("xT", "if-probes-{rank}", "diffedit"), so a test can
-hand the pipeline a stream that yields the JAX package's draws. The mesh
-knobs and `pixel_output` are not ported (ROADMAP.md Queue A item 15).
+hand the pipeline a stream that yields the JAX package's draws. With
+`cfg.pixel_output` the stage-1 strip (pixel space already) is converted to
+uint8 on the device before the copy to the host; the stage-2 upscaler reads
+the float strip. The mesh knobs are not ported (ROADMAP.md Queue A item 15).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from loco_edit_tpu_torch.editing.cfg import cfg_eps, perpendicular_component
 from loco_edit_tpu_torch.editing.pullback import padded_probe_count
 from loco_edit_tpu_torch.masks.diffedit import diffedit_mask
 from loco_edit_tpu_torch.pipelines.common import EngineExec, _host, _Phase
-from loco_edit_tpu_torch.utils.io import save_image_grid
+from loco_edit_tpu_torch.utils.io import save_image_grid, to_uint8_pixels_device
 
 DIRECT_MODES = ("(for-edit)-direct", "(edit-null)-direct",
                 "proj_null[for-null](edit-null)-direct")
@@ -69,6 +71,8 @@ class IFEditConfig:
     convergence_threshold: float = 1e-3
     probe_chunk: int | None = None
     memory_bound: int = 0        # chunk strip denoise batches (0 = off)
+    # return the stage-1 strip as uint8 pixels, converted on the device
+    pixel_output: bool = False
     result_folder: str = "./runs"
     save_images: bool = True
 
@@ -290,7 +294,7 @@ class IFEditPipeline(EngineExec):
             x0 = self.run_batched(
                 lambda ss: self.forward_steps(ss, prompts, "null+(for-null)",
                                               self.edit_t_idx, None), strip)
-            stage1 = img = _host(x0)
+            stage1 = img = _host(to_uint8_pixels_device(x0) if cfg.pixel_output else x0)
         if cfg.save_images:
             self._submit_io(save_image_grid, img,
                             os.path.join(out_dir, "edit-if-stage1.png"))

@@ -13,8 +13,10 @@ batch, chunked by cfg.memory_bound, and decoded in one batch.
 Randomness comes from named forks of the run's RngStream with the JAX
 package's stream names ("zT", "lcm-noise", "lcm-probes-{rank}"), so a test
 can hand the pipeline a stream that yields the JAX package's draws; the
-`noise_fn` hook overrides the inter-step noise alone. The mesh knobs and
-`pixel_output` are not ported (ROADMAP.md Queue A item 15).
+`noise_fn` hook overrides the inter-step noise alone. With
+`cfg.pixel_output` the decoded strip is converted to uint8 pixels on the
+device before the copy to the host. The mesh knobs are not ported (ROADMAP.md
+Queue A item 15).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from loco_edit_tpu_torch.editing import (
 )
 from loco_edit_tpu_torch.editing.pullback import padded_probe_count
 from loco_edit_tpu_torch.pipelines.common import EngineExec, _host, _Phase
-from loco_edit_tpu_torch.utils.io import save_image_grid
+from loco_edit_tpu_torch.utils.io import save_image_grid, to_uint8_pixels_device
 
 
 @dataclasses.dataclass
@@ -63,6 +65,8 @@ class LCMEditConfig:
     probe_chunk: int | None = None
     scaling_factor: float = 0.18215
     memory_bound: int = 0        # chunk strip denoise batches (0 = off)
+    # return the edited strip as uint8 pixels, converted on the device
+    pixel_output: bool = False
     result_folder: str = "./runs"
     save_images: bool = True
     use_sega: bool = False
@@ -131,9 +135,14 @@ class LCMEditPipeline(EngineExec):
 
     @torch.no_grad()
     def decode_strips(self, den) -> np.ndarray:
-        """Batched strip decode, chunked by cfg.memory_bound."""
-        return _host(self.run_batched(
-            lambda zz: self.decode(zz / self.cfg.scaling_factor), self._tensor(den)))
+        """Batched strip decode, chunked by cfg.memory_bound; with
+        cfg.pixel_output the uint8 conversion runs on the device before the
+        copy to the host."""
+        def dec(zz):
+            img = self.decode(zz / self.cfg.scaling_factor)
+            return to_uint8_pixels_device(img) if self.cfg.pixel_output else img
+
+        return _host(self.run_batched(dec, self._tensor(den)))
 
     def consistency_x0_fn(self, prompt: str, step_idx: int) -> Callable:
         """f(z_t) = decode(denoised(z_t)) at one grid step: the map whose

@@ -115,16 +115,31 @@ TINY_CLI = ["--model_name", "TinyTest", "--for_steps", "6", "--inv_steps", "6",
 
 @pytest.mark.parametrize("extra", [
     ["--mesh_probe", "2"], ["--mesh_data", "2"], ["--mesh_sp", "2"],
-    ["--trace_dir", "trace"], ["--verify_load", "ddpm"],
-    ["--model_name", "LCM_Dreamshaper", "--pixel_output", "true"],
+    ["--model_name", "stable-diffusion-tiny", "--mesh_probe", "2"],
+    ["--model_name", "LCM_Dreamshaper", "--mesh_data", "2"],
+    ["--model_name", "DeepFloyd-IF", "--mesh_sp", "2"],
 ])
 def test_unported_flags_raise(extra, tmp_path):
-    """A flag the port cannot honour yet raises NotImplementedError naming
-    its ROADMAP.md item; it is never silently ignored."""
+    """A flag the port cannot honour yet (the mesh flags, for every engine)
+    raises NotImplementedError naming its ROADMAP.md item; it is never
+    silently ignored."""
     argv = TINY_CLI + ["--dataset_name", "Random", "--use_mask", "false",
                        "--result_folder", str(tmp_path), "--dataset_root", str(tmp_path)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 1[0-5]"):
         main.main(argv + extra)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--trace_dir", "trace"], ["--verify_load", "ddpm"],
+    ["--model_name", "LCM_Dreamshaper", "--pixel_output", "true"],
+    ["--model_name", "DeepFloyd-IF", "--pixel_output", "true"],
+])
+def test_ported_flags_are_supported(extra):
+    """--trace_dir, --verify_load and LCM/IF --pixel_output are ported:
+    check_supported lets them through (their runs: test_torch_logger.py,
+    test_torch_verify_load.py, test_torch_serve_t2i.py)."""
+    args.check_supported(args.parse_args(TINY_CLI + extra))
+    assert list(args.UNPORTED) == ["mesh_probe", "mesh_data", "mesh_sp"]
 
 
 # -- datasets and masks -------------------------------------------------------------

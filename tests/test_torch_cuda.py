@@ -605,3 +605,85 @@ def test_f32_loader_sets_full_f32_policy():
         finally:
             torch.backends.cudnn.allow_tf32 = False
     assert _rel(tf32, want) > 1e-3
+
+
+def test_metrics_and_lpips_on_card_match_cpu():
+    """SSIM, masked MSE and LPIPS (alex and vgg, seeded weights, 64 px) on
+    the card against the CPU: 1e-5 absolute for the metrics in [0, 1] and
+    1e-4 relative for LPIPS (full-f32 convolutions both sides)."""
+    _card()
+    import copy
+
+    from loco_edit_tpu_torch.utils import metrics
+    from loco_edit_tpu_torch.utils.lpips import LPIPS, LPIPSMetric
+
+    g = torch.Generator().manual_seed(5)
+    a, b = torch.rand(2, 64, 64, 3, generator=g), torch.rand(2, 64, 64, 3, generator=g)
+    mask = torch.rand(2, 64, 64, 1, generator=g) > 0.5
+    for fn, extra in ((metrics.ssim, {}), (metrics.masked_mse, {"mask": mask})):
+        got = fn(a.cuda(), b.cuda(), **{k: v.cuda() for k, v in extra.items()})
+        want = fn(a, b, **extra)
+        assert got.device.type == "cuda" and (got.cpu() - want).abs().max() <= 1e-5
+    for net in ("alex", "vgg"):
+        model = LPIPS(net)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * (2.0 / p[0].numel()) ** 0.5
+                        if p.ndim == 4 else torch.rand(p.shape, generator=g))
+        card = LPIPSMetric(copy.deepcopy(model).cuda())
+        got, want = card(a, b, normalize=True), LPIPSMetric(model)(a, b, normalize=True)
+        assert got.device.type == "cuda" and _rel(got.cpu(), want) <= 1e-4
+
+
+def test_tiny_served_edit_on_card_launches_both_kernels(tmp_path):
+    """The port's server on the card (TinyTest, f32): one /edit over HTTP
+    launches both kernels, the uint8 strip is to_uint8 of the float one,
+    and /invert answers in the request's shape."""
+    _card()
+    import base64
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from loco_edit_tpu_torch.cli.args import parse_args, preset
+    from loco_edit_tpu_torch.serve import EditService, make_server
+    from loco_edit_tpu_torch.utils.io import to_uint8
+
+    svc = EditService(preset(parse_args([
+        "--model_name", "TinyTest", "--dataset_name", "Random", "--device", "cuda",
+        "--for_steps", "8", "--inv_steps", "8", "--edit_t", "0.6",
+        "--performance_boosting_t", "0.2", "--x_space_guidance_num_step", "2",
+        "--pca_rank", "1", "--pca_rank_null", "1", "--vis_num", "1",
+        "--null_space_projection", "true", "--seed", "3",
+        "--result_folder", str(tmp_path)])))
+    svc.pipe.cfg.save_images = False
+    srv = make_server(svc, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(url + path, data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    def strip(out):
+        dt = np.uint8 if out["dtype"] == "uint8" else np.float32
+        return np.frombuffer(base64.b64decode(out["strips"]["0"]), dt).reshape(out["shape"])
+
+    try:
+        group_norm_cuda.launches = flash_attention_cuda.launches = 0
+        req = {"seed": 4, "mask_bbox": [8, 20, 8, 20], "sample_name": "card"}
+        svc.pipe._boost_calls = 0
+        out_f = post("/edit", dict(req, pixel=False))
+        assert group_norm_cuda.launches > 0 and flash_attention_cuda.launches > 0
+        svc.pipe._boost_calls = 0
+        out_u = post("/edit", req)
+        assert out_f["null_space_projection"] and np.isfinite(strip(out_f)).all()
+        np.testing.assert_array_equal(strip(out_u), to_uint8(strip(out_f)))
+        img = np.zeros((1, 32, 32, 3), np.float32)
+        inv = post("/invert", {"image": base64.b64encode(img.tobytes()).decode()})
+        assert inv["shape"] == [1, 32, 32, 3]
+    finally:
+        srv.shutdown()
