@@ -364,14 +364,23 @@ def record_sd_call_shapes(models):
                 models["encoder"], torch.zeros(1, 512, 512, 3, device="cuda"))}
 
 
-# per model: GN eps, GN and attention calls per forward, batch sizes timed
-# (the batches the main paths give the kernels: LCM runs batch 1 in
-# generate, the basis primal and the text direction, batch 3 in the strip;
-# IF-I-M the CFG batch 2, the IF-II-M upscaler 5 frames x CFG 2)
-MODELS = {"P2": (1e-5, 65, 4, (1, 45)), "DDPM": (1e-6, 71, 6, (1, 45)),
-          "SD-UNet": (None, 61, 32, (2,)), "SD-decode": (None, 30, 1, (1,)),
+# items of phase 13's P2 /edit_batch: its generation runs at this batch
+SERVE_P2_ITEMS = 3
+# per model: GN eps, GN and attention calls per forward, batch sizes timed:
+# the batches the main paths give the kernels (main() fails on a launch at
+# a shape no row checked). P2 runs batch 1 in generate, the inversion and
+# the basis primal, SERVE_P2_ITEMS in the served /edit_batch's generation,
+# 9 in phase 12's f32 strip, 45 in the strips; DDPM 3 in the group edit;
+# the SD U-Net 1 without CFG, 2 with it, 3 with three prompt stacks, 10 in
+# the strip (5 frames x CFG 2); LCM 1 in generate, the basis primal and
+# the text direction, 3 in the strip; the VAE decoder 1 in the bases, 3 in
+# the LCM strip, 5 in the SD strip (memory_bound 5); IF-I-M the CFG batch
+# 2, 10 and 20 in its strips; the IF-II-M upscaler 5 frames x CFG 2
+MODELS = {"P2": (1e-5, 65, 4, (1, SERVE_P2_ITEMS, 9, 45)),
+          "DDPM": (1e-6, 71, 6, (1, 3, 45)),
+          "SD-UNet": (None, 61, 32, (1, 2, 3, 10)), "SD-decode": (None, 30, 1, (1, 3, 5)),
           "SD-encode": (None, 22, 1, (1,)), "LCM-UNet": (None, 61, 32, (1, 3)),
-          "IF-I-M": (None, 117, 22, (2,)), "IF-II-M": (None, 89, 8, (10,))}
+          "IF-I-M": (None, 117, 22, (2, 10, 20)), "IF-II-M": (None, 89, 8, (10,))}
 
 
 def gn_row(tag, dtype, b, shape, per_forward, g):
@@ -664,7 +673,8 @@ def phase_flagship(den, work_dir):
     group_norm_cuda.launches = 0
     flash_attention_cuda.launches = 0
     t0 = time.perf_counter()
-    out = pipe.run_edit_null_space_projection(x0=x0, mask=mask, sample_name="smoke")
+    with recording_calls():
+        out = pipe.run_edit_null_space_projection(x0=x0, mask=mask, sample_name="smoke")
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {"groupnorm": group_norm_cuda.launches,
@@ -725,6 +735,64 @@ def write_celeba_tree(root, size=256, seed=3):
     return root
 
 
+# (kernel, dtype, call shape, GN eps) of every launch on a main path -> its
+# count; main() holds them to the shapes the kernel rows checked
+MAIN_PATH_CALLS: dict = {}
+
+
+def call_key(kernel, dtype, shape, eps=None):
+    return (kernel, str(dtype).split(".")[-1], tuple(int(n) for n in shape),
+            None if eps is None else f"{eps:.3g}")
+
+
+class _Recorder:
+    """A kernel wrapper that records each call's key first; its `launches`
+    is the wrapped function's, which the wrapper increments through its
+    module global (this object while recording)."""
+
+    def __init__(self, fn, key):
+        self.fn, self.key = fn, key
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+    def __call__(self, *args, **kwargs):
+        k = self.key(*args, **kwargs)
+        MAIN_PATH_CALLS[k] = MAIN_PATH_CALLS.get(k, 0) + 1
+        return self.fn(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def recording_calls():
+    """Records the call shape of each launch into MAIN_PATH_CALLS while on,
+    by wrapping the wrappers' module globals, which the autograd functions
+    call."""
+    from loco_edit_tpu_torch.ops import flash_attention as fa
+    from loco_edit_tpu_torch.ops import groupnorm as gn
+
+    gn_fn, fa_fn = gn.group_norm_cuda, fa.flash_attention_cuda
+    gn.group_norm_cuda = _Recorder(gn_fn, lambda x, scale, bias, num_groups=32, eps=1e-5:
+                                   call_key("groupnorm", x.dtype, x.shape, eps))
+    fa.flash_attention_cuda = _Recorder(fa_fn, lambda q, k, v: call_key(
+        "flash_attention", q.dtype, (*q.shape[:3], k.shape[2], q.shape[3])))
+    try:
+        yield
+    finally:
+        gn.group_norm_cuda, fa.flash_attention_cuda = gn_fn, fa_fn
+
+
+def check_main_path_calls(rows):
+    """Fail unless every call shape a main path gave a kernel was checked
+    against the plain version by a kernel row."""
+    checked = {call_key(r["kernel"], r["dtype"], r["shape"], r.get("eps")) for r in rows}
+    missed = {k: n for k, n in MAIN_PATH_CALLS.items() if k not in checked}
+    log(f"[shapes] {len(MAIN_PATH_CALLS)} kernel call shapes on the main paths, "
+        f"{sum(MAIN_PATH_CALLS.values())} launches; checked against the plain versions: "
+        f"{len(MAIN_PATH_CALLS) - len(missed)}")
+    if missed:
+        fail(f"main paths launched kernels at shapes no row checked (launches): {missed}")
+
+
 class ForwardCounter:
     """Counts forward calls of module classes (a global forward pre-hook;
     transforms such as vmap and jvp run a forward once per call), by class
@@ -760,7 +828,7 @@ def run_main_path(fn, *model_classes):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     copies0 = GroupNormFn.layout_copies, AttentionFn.layout_copies
-    with ForwardCounter(*model_classes) as fwd:
+    with ForwardCounter(*model_classes) as fwd, recording_calls():
         group_norm_cuda.launches = 0
         flash_attention_cuda.launches = 0
         t0 = time.perf_counter()
@@ -1679,6 +1747,16 @@ SERVE_SWEEPS = 10
 SERVE_LCM_SWEEPS = 5
 # LPIPS card vs CPU, relative to the larger value (full-f32 convolutions)
 LPIPS_RTOL = 1e-4
+# the /edit_batch image item (an image in [-1, 1]) against its own /edit,
+# relative L2 of each strip, in bf16. Set from the readings 5.8e-2 and
+# 6.3e-2 of two chip runs of the item and 5.2e-2 to 6.3e-2 of the
+# generation alone on three images (H100 80GB HBM3, 700 W): its inverted
+# x_T has spikes near 16, and bf16 rounding that changes with the batch
+# size moves its regeneration that far; the seeds' items stay at
+# BF16_FWD_RTOL. batch_gap's f32 witness holds the same generation at f32
+# to F32_BATCH_RTOL, which puts the gap in bf16 rounding.
+BF16_IMAGE_ITEM_RTOL = 1e-1
+F32_BATCH_RTOL = 1e-3
 
 
 def http_json(url, payload=None):
@@ -1741,28 +1819,32 @@ def add_launches(total, launches):
 
 
 def write_lpips_checkpoint(path: str, net: str = "alex", seed: int = 0) -> str:
-    """A seeded LPIPS state_dict in the lpips package's naming
-    (net.sliceK.I.{weight,bias} + linK.model.1.weight), written to path."""
-    from loco_edit_tpu_torch.utils.lpips import LPIPS, _ALEX_CONVS, _VGG_CONVS
+    """A seeded LPIPS state_dict in the lpips package's naming, written to
+    path."""
+    from loco_edit_tpu_torch.utils.lpips import LPIPS, lpips_package_state_dict
 
     g = torch.Generator().manual_seed(seed)
-    model = LPIPS(net)
-    convs = _ALEX_CONVS if net == "alex" else _VGG_CONVS
-    slices = ((1, 2, 3, 4, 5) if net == "alex"
-              else (1, 1, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5))
     sd = {}
-    for j, (fi, sl) in enumerate(zip(convs, slices)):
-        conv = model.trunk.convs[j]
-        fan_in = conv.weight[0].numel()
-        sd[f"net.slice{sl}.{fi}.weight"] = torch.randn(conv.weight.shape, generator=g) * (
-            2.0 / fan_in) ** 0.5
-        sd[f"net.slice{sl}.{fi}.bias"] = torch.randn(conv.bias.shape, generator=g) * 0.05
-    for k in range(5):
-        c = getattr(model, f"lin{k}").numel()
-        sd[f"lin{k}.model.1.weight"] = torch.rand(1, c, 1, 1, generator=g)
+    for k, v in LPIPS(net).state_dict().items():
+        if k.endswith(".weight"):     # a backbone conv: He-normal
+            sd[k] = torch.randn(v.shape, generator=g) * (2.0 / v[0].numel()) ** 0.5
+        elif k.endswith(".bias"):
+            sd[k] = torch.randn(v.shape, generator=g) * 0.05
+        else:                         # a lin head
+            sd[k] = torch.rand(v.shape, generator=g)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save(sd, path)
+    torch.save(lpips_package_state_dict(sd, net), path)
     return path
+
+
+def batch_gap(pipe, xT, others, t_idx):
+    """How far the generation of xT to edit_t moves when it runs behind
+    `others` (as /edit_batch batches them) against alone (as /edit runs
+    it): the relative L2 of its x_{edit_t} (all that follows runs at batch
+    1 in both)."""
+    alone = pipe.generate(xT, 0, t_idx)
+    batched = pipe.generate(torch.cat([*others, xT]), 0, t_idx)[-1:]
+    return float((batched - alone).norm() / alone.norm())
 
 
 def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
@@ -1770,14 +1852,20 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
     make_server) on the full-width FFHQ_P2 with seeded bf16 weights at the
     reference's 100/100 steps, rank 5 + null 5, SERVE_SWEEPS fixed sweeps,
     answering /health, /edit (uint8), the same /edit again (the cached
-    basis, the same bits), /edit_batch of two seeds and an image (each item
-    against its own /edit), /invert (against pipe.invert, the same bits),
-    /segment (seeded SAM ViT-L), and one /edit under device_trace (the
-    device's busy share of its window); then the metrics and LPIPS of the
-    served strips, card against CPU. Returns the launches of every request."""
+    basis, the same bits), /edit_batch of seeds and an image in [-1, 1]
+    (each item against its own /edit; the image's batch gap witnessed at
+    f32 by batch_gap), /invert (timed under the server's own flags, then
+    against pipe.invert with deterministic cuDNN, the same bits), /segment
+    (seeded SAM ViT-L), and one /edit under device_trace (the device's busy
+    share of its window); then the metrics and LPIPS of the served strips,
+    card against CPU. Returns the launches of every request."""
+    import argparse
+
     from loco_edit_tpu_torch.cli.args import parse_args, preset
-    from loco_edit_tpu_torch.core.rng import RngStream
+    from loco_edit_tpu_torch.core.rng import seed_everything
     from loco_edit_tpu_torch.models.adm import ADMUNet
+    from loco_edit_tpu_torch.models.registry import load_denoiser
+    from loco_edit_tpu_torch.pipelines import UncondEditPipeline
     from loco_edit_tpu_torch.serve import EditService
     from loco_edit_tpu_torch.utils import metrics
     from loco_edit_tpu_torch.utils.io import to_uint8
@@ -1793,7 +1881,8 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
             "--null_space_projection", "true", "--seed", "0",
             "--result_folder", os.path.join(work_dir, "serve_p2")]
     t0 = time.perf_counter()
-    svc = EditService(preset(parse_args(argv)))
+    args = preset(parse_args(argv))
+    svc = EditService(args)
     cfg = svc.pipe.cfg
     cfg.min_iter = cfg.max_iter = SERVE_SWEEPS
     cfg.convergence_threshold = 0.0
@@ -1840,18 +1929,14 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
         if not all(checks.values()):
             fail(f"{tag}: /edit checks failed: {checks}")
 
-        # the image item: a sample of the model, posted in f32 unclipped. The
-        # seeded weights put their samples at |x| up to ~850; an image in
-        # [-1, 1] inverts to an x_T with spikes near 16, whose regeneration
-        # to edit_t differs ~6e-2 (relative L2) between batch 1 and batch 3
-        # in bf16, against ~1e-3 from a sample (PERF.md, section 6)
-        x0 = svc.pipe.generate(RngStream.from_seed(4).normal((1, h, w, c), device=device),
-                               0, None).cpu().numpy()
-        items = [{"seed": 2, "mask_bbox": box}, {"seed": 3, "mask_bbox": box},
-                 {"image": b64_array(x0), "mask_bbox": box}]
+        # the image item: phase 4's input image, in [-1, 1]
+        x0 = np.clip(np.random.default_rng(2).normal(size=(1, h, w, c)) * 0.5, -1,
+                     1).astype(np.float32)
+        items = [{"seed": 2 + i, "mask_bbox": box} for i in range(SERVE_P2_ITEMS - 1)]
+        items.append({"image": b64_array(x0), "mask_bbox": box})
         svc.pipe._boost_calls = 0
         batch, launches = served(
-            tag, "/edit_batch (2 seeds + 1 image)", url + "/edit_batch",
+            tag, f"/edit_batch ({len(items) - 1} seeds + 1 image)", url + "/edit_batch",
             {"items": items, "pixel": False}, (ADMUNet,), P2_PER_FWD,
             {"ADMUNet": inv_fwd + t_idx + len(items) * (1 + SERVE_SWEEPS + strips_fwd)}, svc)
         add_launches(total, launches)
@@ -1866,17 +1951,43 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
             got, ref = strips_of(batch["results"][i]), strips_of(single)
             errs.append(max(float(np.linalg.norm(got[pc] - ref[pc]) / np.linalg.norm(ref[pc]))
                             for pc in ref))
+        tols = [BF16_IMAGE_ITEM_RTOL if "image" in it else BF16_FWD_RTOL for it in items]
         log(f"[{tag}] /edit_batch items against their /edit (relative L2, each strip): "
-            f"{[f'{e:.2e}' for e in errs]}, tol {BF16_FWD_RTOL:.0e}; batch server secs "
-            f"{batch['secs']}")
-        if not (batch["null_space_projection"] and all(e <= BF16_FWD_RTOL for e in errs)):
-            fail(f"{tag}: /edit_batch items disagree with /edit: {errs}")
+            f"{[f'{e:.2e}' for e in errs]}, limits {[f'{t:.0e}' for t in tols]}; batch "
+            f"server secs {batch['secs']}")
+        if not (batch["null_space_projection"] and all(e <= t for e, t in zip(errs, tols))):
+            fail(f"{tag}: /edit_batch items disagree with /edit: {errs}, limits {tols}")
 
+        # the image item's batch gap in the server's bf16 and at f32, from
+        # the x_T the server inverts it to
+        t1 = time.perf_counter()
+        others = [torch.from_numpy(svc._resolve_input(it)[1]).to(device) for it in items[:-1]]
+        xT_image = svc.pipe.invert(x0)
+        gaps = {"bf16": batch_gap(svc.pipe, xT_image, others, t_idx)}
+        with tf32_convs(False):
+            den32 = load_denoiser(argparse.Namespace(**{**vars(args), "dtype": "fp32"}))
+            pipe32 = UncondEditPipeline(den32, dataclasses.replace(
+                cfg, result_folder=os.path.join(work_dir, "witness")),
+                seed_everything(0), device=device)
+            gaps["f32"] = batch_gap(pipe32, xT_image, others, t_idx)
+        del den32, pipe32
+        log(f"[{tag}] the image item's generation to edit_t behind {len(others)} seeds "
+            f"against alone, relative L2 of x_edit_t (max |x_T| "
+            f"{float(xT_image.abs().max()):.3f}): {gaps}; limit at f32 {F32_BATCH_RTOL:.0e}; "
+            f"{time.perf_counter() - t1:.2f} s")
+        if not gaps["f32"] <= F32_BATCH_RTOL:
+            fail(f"{tag}: at f32 the image's generation depends on its batch: {gaps}")
+
+        inv_s, launches = served(tag, "/invert (the server's own cuDNN flags)",
+                                 url + "/invert", {"image": b64_array(x0)}, (ADMUNet,),
+                                 P2_PER_FWD, {"ADMUNet": inv_fwd}, svc)
+        add_launches(total, launches)
         saved = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            inv, launches = served(tag, "/invert", url + "/invert", {"image": b64_array(x0)},
-                                   (ADMUNet,), P2_PER_FWD, {"ADMUNet": inv_fwd}, svc)
+            inv, launches = served(tag, "/invert (deterministic cuDNN, the compared pair)",
+                                   url + "/invert", {"image": b64_array(x0)}, (ADMUNet,),
+                                   P2_PER_FWD, {"ADMUNet": inv_fwd}, svc)
             add_launches(total, launches)
             ref = svc.pipe.invert(x0).cpu().numpy()
         finally:
@@ -1887,7 +1998,7 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
         log(f"[{tag}] /invert: shape {inv['shape']}, max |xT| {float(np.abs(xT).max()):.3f}, "
             f"the same bits as pipe.invert: {np.array_equal(xT, ref)} (max |diff| "
             f"{float(np.abs(xT - ref).max()):.2e})")
-        if not np.array_equal(xT, ref):
+        if not (np.array_equal(xT, ref) and inv_s["shape"] == inv["shape"]):
             fail(f"{tag}: /invert differs from pipe.invert on the same input")
 
         seg, launches = served(tag, "/segment (seeded SAM ViT-L)", url + "/segment",
@@ -1921,7 +2032,7 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
 
     # eval of the image item's float strip (pc 0) against its original, both
     # clipped to [0, 1] as their PNGs would be
-    strip = np.clip((strips_of(batch["results"][2])[0] + 1) / 2, 0, 1)
+    strip = np.clip((strips_of(batch["results"][-1])[0] + 1) / 2, 0, 1)
     orig = np.repeat(np.clip((x0 + 1) / 2, 0, 1), strip.shape[0], axis=0)
     m = np.repeat(mask, strip.shape[0], axis=0)
     lp_path = write_lpips_checkpoint(os.path.join(work_dir, "lpips", "alex.pth"))
@@ -1952,9 +2063,10 @@ def phase_serve_lcm(work_dir, model_name="LCM_Dreamshaper_v7", device="cuda"):
     """Phase 13, LCM: the port's server on the full-width LCM Dreamshaper v7
     with seeded bf16 weights (4 steps, edit_t_idx 2, w 6.5, rank 5 + null 5
     non-semantic, x-space guidance 0.4 x 24, vis_num 1, SERVE_LCM_SWEEPS
-    fixed sweeps): one /edit with "pixel" true and the same request with
-    "pixel" false; the uint8 strip must be to_uint8 of the float strip.
-    Returns the launches."""
+    fixed sweeps): one /edit with "pixel" true timed under the server's own
+    flags, then the compared pair with deterministic cuDNN: the same request
+    with "pixel" true and false; the uint8 strip must be to_uint8 of the
+    float strip. Returns the launches."""
     from loco_edit_tpu_torch.cli.args import parse_args, preset
     from loco_edit_tpu_torch.models.sd import SDUNet, VAEDecoder, VAEEncoder
     from loco_edit_tpu_torch.serve import EditService
@@ -1984,26 +2096,29 @@ def phase_serve_lcm(work_dir, model_name="LCM_Dreamshaper_v7", device="cuda"):
     steps_left = len(svc.pipe.grid) - cfg.edit_t_idx
     fwd = {"SDUNet": cfg.edit_t_idx + 1 + SERVE_LCM_SWEEPS + chunks * steps_left,
            "VAEDecoder": 1 + SERVE_LCM_SWEEPS + chunks, "VAEEncoder": 0}
-    total, answers = {}, {}
+    total, answers = {}, []
     saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     try:
-        for pixel in (True, False):
-            svc.pipe._noise_calls = 0       # the same inter-step noise both times
-            out, launches = served(tag, f"/edit pixel {str(pixel).lower()}", url + "/edit",
-                                   dict(req, pixel=pixel), (SDUNet, VAEDecoder, VAEEncoder),
-                                   SD_PER_FWD, fwd, svc)
+        for what, pixel, det in (("the server's own cuDNN flags", True, saved),
+                                 ("deterministic cuDNN", True, True),
+                                 ("deterministic cuDNN", False, True)):
+            torch.backends.cudnn.deterministic = det
+            svc.pipe._noise_calls = 0       # the same inter-step noise every time
+            out, launches = served(tag, f"/edit pixel {str(pixel).lower()} ({what})",
+                                   url + "/edit", dict(req, pixel=pixel),
+                                   (SDUNet, VAEDecoder, VAEEncoder), SD_PER_FWD, fwd, svc)
             add_launches(total, launches)
-            answers[pixel] = out
+            answers.append(out)
     finally:
         torch.backends.cudnn.deterministic = saved
         srv.shutdown()
         srv.server_close()
-    u8, f32 = strips_of(answers[True])[0], strips_of(answers[False])[0]
+    fast, u8, f32 = (strips_of(a)[0] for a in answers)
     ref = to_uint8(f32)
-    checks = {"uint8": answers[True]["dtype"] == "uint8" and u8.shape == (n_frames, px, px, 3),
-              "float": answers[False]["dtype"] == "float32" and bool(np.isfinite(f32).all()),
-              "projected": answers[True]["null_space_projection"] is True,
+    checks = {"uint8": answers[0]["dtype"] == answers[1]["dtype"] == "uint8"
+              and fast.shape == u8.shape == (n_frames, px, px, 3),
+              "float": answers[2]["dtype"] == "float32" and bool(np.isfinite(f32).all()),
+              "projected": all(a["null_space_projection"] is True for a in answers),
               "pixel_output": np.array_equal(u8, ref)}
     log(f"[{tag}] the device's uint8 strip against to_uint8 of the float strip: "
         f"{int((u8 != ref).sum())} of {u8.size} values differ; checks {checks}")
@@ -2146,6 +2261,7 @@ def main() -> int:
              "lcm_f32_cli_edit": lcm_f32,
              "if_cli_edit": if_edit, "p2_f32_sam_cli_edit": p2_sam_edit,
              "serve_p2": serve_p2, "serve_lcm": serve_lcm}
+    check_main_path_calls(rows)
     kernels = [
         summarize(rows, "groupnorm", "loco_edit_tpu_torch/csrc/groupnorm.cu",
                   "loco_edit_tpu/ops/pallas/groupnorm_stats.py:79",

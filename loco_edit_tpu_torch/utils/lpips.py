@@ -38,6 +38,9 @@ _ALEX_CH = (64, 192, 384, 256, 256)
 # VGG16: taps after relu1_2, relu2_2, relu3_3, relu4_3, relu5_3
 _VGG_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 _VGG_CH = (64, 128, 256, 512, 512)
+# the lpips package's slice of each of those convs (its net.sliceK.I naming)
+_ALEX_SLICES = (1, 2, 3, 4, 5)
+_VGG_SLICES = (1, 1, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5)
 # AlexNet: (out_ch, kernel, stride, pad, pool_before) per conv
 _ALEX_SPEC = ((64, 11, 4, 2, False), (192, 5, 1, 2, True), (384, 3, 1, 1, True),
               (256, 3, 1, 1, False), (256, 3, 1, 1, False))
@@ -203,6 +206,21 @@ def convert_lpips_state_dict(state_dict: Mapping, lin_state_dict: Mapping | None
             raise ValueError(f"lin{k} has {w.size} weights, expected {chans[k]}")
         out[f"lin{k}"] = torch.from_numpy(w.copy())
     return out, net
+
+
+def lpips_package_state_dict(state_dict: Mapping, net: str) -> dict[str, torch.Tensor]:
+    """An `LPIPS(net)` state_dict in the lpips package's naming
+    (net.sliceK.I.{weight,bias} + linK.model.1.weight): the inverse of
+    convert_lpips_state_dict, for writing checkpoints its loaders read."""
+    convs = _ALEX_CONVS if net == "alex" else _VGG_CONVS
+    slices = _ALEX_SLICES if net == "alex" else _VGG_SLICES
+    out = {}
+    for j, (fi, sl) in enumerate(zip(convs, slices)):
+        for leaf in ("weight", "bias"):
+            out[f"net.slice{sl}.{fi}.{leaf}"] = state_dict[f"trunk.convs.{j}.{leaf}"]
+    for k in range(5):
+        out[f"lin{k}.model.1.weight"] = state_dict[f"lin{k}"].reshape(1, -1, 1, 1)
+    return out
 
 
 def lpips_params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:

@@ -21,10 +21,6 @@ LPIPS_RTOL = 1e-5
 _ALEX = ((0, 3, 64, 11), (3, 64, 192, 5), (6, 192, 384, 3), (8, 384, 256, 3),
          (10, 256, 256, 3))
 _VGG_PLAN = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
-# lpips slices: torchvision feature index -> slice number
-_ALEX_SLICE = {0: 1, 3: 2, 6: 3, 8: 4, 10: 5}
-_VGG_SLICE = {0: 1, 2: 1, 5: 2, 7: 2, 10: 3, 12: 3, 14: 3, 17: 4, 19: 4, 21: 4,
-              24: 5, 26: 5, 28: 5}
 
 
 def _features(net: str, seed: int) -> dict:
@@ -64,14 +60,10 @@ def _named(net: str, naming: str, seed: int = 0) -> tuple[dict, dict | None]:
     feats, lins = _features(net, seed), _lins(net, seed + 1)
     if naming == "pair":
         return feats, lins
-    slices = _ALEX_SLICE if net == "alex" else _VGG_SLICE
-    sd = {}
-    for k, v in feats.items():
-        _, fi, leaf = k.split(".")
-        sd[f"net.slice{slices[int(fi)]}.{fi}.{leaf}"] = v
-    for k, v in lins.items():
-        sd[k] = v
-        sd[k.replace("lin", "lins.", 1)] = v
+    sd = port_lpips.lpips_package_state_dict(
+        port_lpips.convert_lpips_state_dict(feats, lins, net)[0], net)
+    for k in range(5):
+        sd[f"lins.{k}.model.1.weight"] = sd[f"lin{k}.model.1.weight"]
     if naming == "torchmetrics":
         sd = {f"net.{k}": v for k, v in sd.items()}
         sd["net.scaling_layer.shift"] = torch.tensor([-0.030, -0.088, -0.188])
