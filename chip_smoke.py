@@ -104,7 +104,8 @@ Phases (any failure raises; nothing is caught and skipped):
      --sampling_mode true run (SAM masks + overlays, exit 0), then the edit
      with --mask_index 0. Launches: 65 GN + 4 attention per P2 forward (the
      f32 routes); forwards what the steps predict; unit-norm finite
-     directions, strips and artifacts.
+     directions, strips and artifacts. Cut, printed with the phase: a fixed
+     5 sweeps a basis (the script's CLI: 10-50 until 1e-3).
  13. The port's edit server (serve.py: EditService behind make_server on
      127.0.0.1, port 0, in a thread), over HTTP. FFHQ_P2 at full width,
      bf16, 100/100 steps, rank 5 + null 5, 10 fixed sweeps: /health; /edit
@@ -123,17 +124,36 @@ Phases (any failure raises; nothing is caught and skipped):
      to its steps. At the end of phase 10, `--verify_load all` over its
      IF-I-M and IF-II-M checkpoints and a seeded LPIPS file: every file
      classified, converted with full key coverage, finite on the card.
+ 14. Training and the rest of the toolkit on FFHQ_P2 at full width
+     (93,563,910 parameters, seeded). One f32 train step at batch 1, card
+     (kernels) vs CPU (plain versions), the same injected noise, full f32:
+     loss, grad_norm and the input_0, middle and out_conv gradients held to
+     FWD_RTOL. run_training in bf16 with f32 masters over ShardedImageLoader
+     (16 seeded 256 px images; the native decoder or PIL, printed): batch 8
+     in 2 microbatches, loss-aware timesteps, 10 steps and a checkpoint,
+     then a resumed call to step 20; step times, images/s, peak memory,
+     first and last loss, launches per step held to 2 x (65 GN + 4
+     attention) (the backward rules launch none). The h-space toolkit at
+     0.6 T: encoder pullback (rank 5, 10 fixed sweeps), h_to_e and inv_jac
+     on its directions, global PCA over 32 draws in chunks of 8, local PCA
+     over 64 probes. calc_bpd_loop with the learned sigma over a 100-step
+     respaced schedule (the cut, printed), p_sample_scan at batch 4 over
+     the same steps, unguided and with classifier guidance from a seeded
+     EncoderADMUNet on P2's trunk (attention pool), one SuperResADMUNet
+     forward with doubled input channels. Outputs finite, unit-norm rows.
 
 TF32: the kernel-vs-plain and card-vs-CPU checks (phases 2, 3 and those of
-7, 9, 10 and 11) run with TF32 off for matmuls and convolutions, and phases
+7, 9, 10, 11 and 14) run with TF32 off for matmuls and convolutions, and phases
 3, 7 and 11 also print their errors with TF32 convolutions (PyTorch's
 default); the CLI and edit phases run under the backend flags the port
 itself sets (its f32 entry points turn TF32 off: core/device.py).
 
 Launch counts are set to 0 just before each main path (phases 4, 6 edit,
 6 group, 8 edit, 8 delta, 8 invert, 9 edit, 9 delta, 9 f32 edit, 10 edit,
-12 edit, and each request of 13) and read just after; phase 13's sum per
-server is the kernels line's serve_p2 and serve_lcm. The last three lines of standard output are the card's name and
+12 edit, each request of 13, and 14's training, h-space and likelihood /
+sampling runs) and read just after; phase 13's sum per server is the
+kernels line's serve_p2 and serve_lcm, phase 14's runs are train_p2,
+hspace_p2 and bpd_ancestral_p2. The last three lines of standard output are the card's name and
 power limit (nvidia-smi), the kernels' JSON line and the result line.
 """
 
@@ -368,15 +388,17 @@ def record_sd_call_shapes(models):
 SERVE_P2_ITEMS = 3
 # per model: GN eps, GN and attention calls per forward, batch sizes timed:
 # the batches the main paths give the kernels (main() fails on a launch at
-# a shape no row checked). P2 runs batch 1 in generate, the inversion and
-# the basis primal, SERVE_P2_ITEMS in the served /edit_batch's generation,
-# 9 in phase 12's f32 strip, 45 in the strips; DDPM 3 in the group edit;
+# a shape no row checked). P2 runs batch 1 in generate, the inversion, the
+# basis primal, the h-space toolkit and the likelihood, SERVE_P2_ITEMS in
+# the served /edit_batch's generation, 4 in a training microbatch and in
+# ancestral sampling (the encoder too), 8 in a global-PCA chunk, 9 in phase
+# 12's f32 strip, 45 in the strips, 64 in local PCA's probes; DDPM 3 in the group edit;
 # the SD U-Net 1 without CFG, 2 with it, 3 with three prompt stacks, 10 in
 # the strip (5 frames x CFG 2); LCM 1 in generate, the basis primal and
 # the text direction, 3 in the strip; the VAE decoder 1 in the bases, 3 in
 # the LCM strip, 5 in the SD strip (memory_bound 5); IF-I-M the CFG batch
 # 2, 10 and 20 in its strips; the IF-II-M upscaler 5 frames x CFG 2
-MODELS = {"P2": (1e-5, 65, 4, (1, SERVE_P2_ITEMS, 9, 45)),
+MODELS = {"P2": (1e-5, 65, 4, (1, SERVE_P2_ITEMS, 4, 8, 9, 45, 64)),
           "DDPM": (1e-6, 71, 6, (1, 3, 45)),
           "SD-UNet": (None, 61, 32, (1, 2, 3, 10)), "SD-decode": (None, 30, 1, (1, 3, 5)),
           "SD-encode": (None, 22, 1, (1,)), "LCM-UNet": (None, 61, 32, (1, 3)),
@@ -1658,6 +1680,13 @@ def write_ffhq_folder(root, size=256, seed=13):
     return root
 
 
+# phase 12's cut: each of its two bases runs this many sweeps (the CLI's
+# UncondEditConfig takes 10-50 until 1e-3), as phases 8 and 9 fix theirs
+P2_SAM_SWEEPS = 5
+P2_SAM_CUTS = (f"{P2_SAM_SWEEPS} basis sweeps a basis (min_iter = max_iter = "
+               f"{P2_SAM_SWEEPS}; the script's CLI: 10-50 until 1e-3)")
+
+
 def phase_p2_sam_cli(work_dir, model_name="FFHQ_P2", image_px=256):
     """Phase 12: scripts/main_hf_null_space_projection_FFHQ_P2.sh through
     cli.main.main with every flag it passes, plus --device cuda, the
@@ -1665,8 +1694,12 @@ def phase_p2_sam_cli(work_dir, model_name="FFHQ_P2", image_px=256):
     flax: f32, seeded random P2 and SAM ViT-L weights, the port's own
     backend flags. The --sampling_mode true run caches the SAM masks and
     exits 0; the rerun (--sampling_mode false, as the script passes it)
-    edits with --mask_index 0. Returns the edit's launch counts. model_name
-    and image_px: a CPU rehearsal passes a tiny model's."""
+    edits with --mask_index 0. Cut: P2_SAM_SWEEPS fixed sweeps a basis.
+    Returns the edit's launch counts. model_name and image_px: a CPU
+    rehearsal passes a tiny model's."""
+    import functools
+
+    from loco_edit_tpu_torch import pipelines
     from loco_edit_tpu_torch.cli.main import main as cli_main
     from loco_edit_tpu_torch.models.adm import ADMUNet
     from loco_edit_tpu_torch.ops.flash_attention import route
@@ -1688,20 +1721,25 @@ def phase_p2_sam_cli(work_dir, model_name="FFHQ_P2", image_px=256):
             "--mask_backend", "flax"]
     masks = sam_sampling_run("12 p2 sam", cli_main, argv, image_px)
     edit_argv = argv + ["--sampling_mode", "false"]
-    log(f"[12 p2 sam] python -m loco_edit_tpu_torch.cli.main {' '.join(edit_argv)}")
+    log(f"[12 p2 sam] python -m loco_edit_tpu_torch.cli.main {' '.join(edit_argv)}; "
+        f"cut: {P2_SAM_CUTS}")
     dtypes = set()
     hook = torch.nn.modules.module.register_module_forward_pre_hook(
         lambda m, a: dtypes.add(a[0].dtype) if isinstance(m, ADMUNet) else None)
+    config = pipelines.UncondEditConfig
+    pipelines.UncondEditConfig = functools.partial(
+        config, min_iter=P2_SAM_SWEEPS, max_iter=P2_SAM_SWEEPS)
     try:
         res, launches, fwd, total_s, peak = run_main_path(lambda: cli_main(edit_argv), ADMUNet)
     finally:
+        pipelines.UncondEditConfig = config
         hook.remove()
     fwd = fwd["ADMUNet"]
     out = res["edit"]
     t_idx = out["edit_t_idx"]
     fixed = (steps - 2) + t_idx + (steps - 1 - t_idx)   # invert + generate + strips
     # ranks 3 and 5 differ, so the mask and null bases run one after the
-    # other, each 1 primal + one per sweep (10-50 sweeps)
+    # other, each 1 primal + one per sweep
     basis_fwd = fwd - fixed
     vT = out["vT"]
     norms = np.linalg.norm(vT, axis=1)
@@ -1720,7 +1758,7 @@ def phase_p2_sam_cli(work_dir, model_name="FFHQ_P2", image_px=256):
         "pngs": sum(f.startswith("edit-") and f.endswith(".png") for f in files) == rank,
         "npz": all(f"pc_{i:03d}-vT.npz" in files for i in range(rank))
         and sum(f.startswith("vT-") and f.endswith(".npz") for f in files) == 2,
-        "sweeps_in_range": 2 * (1 + 10) <= basis_fwd <= 2 * (1 + 50),
+        "sweeps": basis_fwd == 2 * (1 + P2_SAM_SWEEPS),
     }
     phases = {k: round(v, 3) for k, v in res["timings"]["edit"].items()}
     log(f"[12 p2 sam] f32 edit with SAM mask 0 ({masks[0, ..., 0].mean():.3f} of pixels): "
@@ -2152,6 +2190,365 @@ def phase_verify_all(root, device="cuda"):
     return rep
 
 
+# -- phase 14: training and the toolkit on FFHQ_P2 ------------------------------
+
+P2_PARAMS = 93_563_910
+# the training run: bf16 network, f32 masters, batch 8 in 2 microbatches of
+# 4, loss-aware timesteps; a checkpoint at step 10, then a resumed second call
+TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS, TRAIN_RESUME_AT = 8, 2, 20, 10
+TRAIN_IMAGES = 16
+# h-space: the encoder pullback at 0.6 T, rank 5, fixed sweeps; global PCA
+# over a population in chunks; local PCA over probes (one batch)
+HSPACE_T, HSPACE_RANK, HSPACE_SWEEPS = 0.6, 5, 10
+PCA_POP, PCA_CHUNK, PCA_PROBES = 32, 8, 64
+# likelihood and ancestral sampling over a respaced schedule (the cut: 100
+# of the 1000 training steps); sampling at batch 4
+RESPACED_STEPS, SAMPLE_BATCH = 100, 4
+
+
+def write_train_folder(root, n=TRAIN_IMAGES, size=256):
+    """n seeded face-like images (write_ffhq_folder's picture at n seeds),
+    one subfolder each, for the training loader."""
+    for i in range(n):
+        write_ffhq_folder(os.path.join(root, f"{i:02d}"), size, seed=100 + i)
+    return root
+
+
+def train_step_on(model, x0, t, noise, names):
+    """One f32 train step of `model` (TrainConfig's defaults) on its device:
+    (metrics, the averaged gradients of the parameters named with one of
+    the prefixes `names`, as its optimizer received them), on the CPU."""
+    from loco_edit_tpu_torch.diffusion import NoiseSchedule
+    from loco_edit_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+
+    cfg = TrainConfig()
+    state = create_train_state(dict(model.named_parameters()), cfg)
+    seen = {}
+    inner = state.opt_state.step
+
+    def capture(params, grads, grad_norm):
+        seen.update({k: g.cpu() for k, g in zip(params, grads) if k.startswith(names)})
+        inner(params, grads, grad_norm)
+
+    state.opt_state.step = capture
+    dev = next(model.parameters()).device
+    _, met = make_train_step(model, cfg, NoiseSchedule.linear())(
+        state, x0.to(dev), t.to(dev), torch.ones(len(t), device=dev), noise=noise.to(dev))
+    return {k: v.cpu() for k, v in met.items()}, seen
+
+
+def phase_train_vs_cpu(model_name="FFHQ_P2"):
+    """14.1: one f32 train step at batch 1 on the card (kernels) and on the
+    CPU (plain versions), the same weights, x0, t and injected noise, under
+    full f32: loss, grad_norm and the gradients of the input_0, middle and
+    out_conv weights held to FWD_RTOL (relative to the largest value)."""
+    from loco_edit_tpu_torch.models.registry import load_adm_denoiser
+
+    model = load_adm_denoiser(model_name, dtype=torch.float32, device="cuda",
+                              seed=0).meta["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    if model_name == "FFHQ_P2" and n_params != P2_PARAMS:
+        fail(f"FFHQ_P2 has {n_params} parameters, expected {P2_PARAMS}")
+    with torch.device("cpu"):
+        cpu_model = type(model)(model.cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_model.requires_grad_(False).eval()
+    px = model.cfg.image_size
+    rng = np.random.default_rng(21)
+    x0 = torch.from_numpy(np.tanh(rng.normal(size=(1, px, px, 3))).astype(np.float32))
+    noise = torch.from_numpy(rng.normal(size=(1, px, px, 3)).astype(np.float32))
+    t = torch.tensor([600])
+    names = ("input_0.", "middle.", "out_conv.")
+    t0 = time.perf_counter()
+    cpu_met, cpu_g = train_step_on(cpu_model, x0, t, noise, names)
+    cpu_s = time.perf_counter() - t0
+    with tf32_convs(False):
+        t0 = time.perf_counter()
+        met, g = train_step_on(model, x0, t, noise, names)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    errs = {k: rel_err(met[k], cpu_met[k]) for k in ("loss", "grad_norm")}
+    for prefix in names:
+        keys = sorted(k for k in cpu_g if k.startswith(prefix))
+        errs[f"grad {prefix}*"] = rel_err(torch.cat([g[k].reshape(-1) for k in keys]),
+                                          torch.cat([cpu_g[k].reshape(-1) for k in keys]))
+    finite = all(torch.isfinite(v).all() for v in [*met.values(), *g.values()])
+    log(f"[14 train] {model_name} ({n_params:,} parameters) f32 train step at batch 1, "
+        f"card vs CPU: loss {float(met['loss']):.6f} (CPU {float(cpu_met['loss']):.6f}), "
+        f"grad_norm {float(met['grad_norm']):.6f} (CPU {float(cpu_met['grad_norm']):.6f}); "
+        f"relative errors {({k: f'{v:.2e}' for k, v in errs.items()})}, tol {FWD_RTOL:.0e}; "
+        f"card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+    bad = {k: v for k, v in errs.items() if not v <= FWD_RTOL}
+    if bad or not finite:
+        fail(f"f32 train step card vs CPU: {bad}, finite {finite}")
+    return errs
+
+
+def phase_train_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
+    """14.2: run_training of the bf16 P2 with f32 masters over
+    ShardedImageLoader: TRAIN_RESUME_AT steps with a checkpoint, then a second
+    call that resumes from it and reaches TRAIN_STEPS. Each step is timed
+    (synchronized). Returns (launches, the trained model)."""
+    from loco_edit_tpu_torch.models.adm import ADMUNet
+    from loco_edit_tpu_torch.models.registry import load_adm_denoiser
+    from loco_edit_tpu_torch.training import TrainConfig, loop
+    from loco_edit_tpu_torch.training.checkpoint import latest_step
+    from loco_edit_tpu_torch.training.data import ShardedImageLoader
+    from loco_edit_tpu_torch.utils.logger import Logger
+
+    model = load_adm_denoiser(model_name, dtype=torch.bfloat16, device=device,
+                              seed=0).meta["model"]
+    px = model.cfg.image_size
+    loader = ShardedImageLoader(write_train_folder(os.path.join(work_dir, "train"), size=px),
+                                TRAIN_BATCH, px, seed=0, device=device)
+    data = iter(loader)
+    cfg = TrainConfig(microbatches=TRAIN_MICRO)
+    ckpt = os.path.join(work_dir, "ckpt")
+    rows, step_s = [], []
+
+    class Recorder(Logger):
+        def dumpkvs(self):
+            out = super().dumpkvs()
+            rows.append(out)
+            return out
+
+    make = loop.make_train_step
+
+    def timed(*a, **k):
+        fn = make(*a, **k)
+
+        def step(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        return step
+
+    def train(total):
+        return loop.run_training(
+            model, data, cfg=cfg, total_steps=total, log_interval=1,
+            save_interval=TRAIN_RESUME_AT, ckpt_dir=ckpt, loss_aware=True, seed=0,
+            logger=Recorder(formats=()), device=device)
+
+    def run():
+        first = train(TRAIN_RESUME_AT).step
+        saved = latest_step(ckpt)
+        return first, saved, train(TRAIN_STEPS).step, latest_step(ckpt)
+
+    why = ""
+    if loader.decoder == "pil":      # the host decoder: JAX's loader falls back the same way
+        from loco_edit_tpu_torch import native
+
+        why = f" (native: {(native._build_error or '').strip().splitlines()[:1]})"
+    log(f"[14 train] {model_name} bf16 network, f32 masters: batch {TRAIN_BATCH} in "
+        f"{TRAIN_MICRO} microbatches, loss-aware timesteps, {TRAIN_STEPS} steps, a checkpoint "
+        f"at {TRAIN_RESUME_AT} and a resumed second call; data: {len(loader.files)} "
+        f"{px} px images, decoder {loader.decoder}{why}")
+    loop.make_train_step = timed
+    try:
+        res, launches, fwd, total_s, peak = run_main_path(run, ADMUNet)
+    finally:
+        loop.make_train_step = make
+    losses = [r["loss"] for r in rows]
+    med = float(np.median(step_s))
+    checks = {"steps": res == (TRAIN_RESUME_AT, TRAIN_RESUME_AT, TRAIN_STEPS, TRAIN_STEPS),
+              "logged": len(rows) == TRAIN_STEPS and all("loss_q0" in r or "loss_q1" in r
+                                                         or "loss_q2" in r or "loss_q3" in r
+                                                         for r in rows),
+              "finite": bool(np.isfinite(losses).all()
+                             and np.isfinite([r["grad_norm"] for r in rows]).all()),
+              "model_back_in_eval": not model.training}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    log(f"[14 train] {total_s:.2f} s for {TRAIN_STEPS} steps (checkpoints included); step "
+        f"median {1e3 * med:.1f} ms (first {1e3 * step_s[0]:.1f} ms), {TRAIN_BATCH / med:.2f} "
+        f"images/s; peak device memory {peak:.2f} GiB; loss first {losses[0]:.5f} last "
+        f"{losses[-1]:.5f}; launches per step {per_step} (held to {TRAIN_MICRO} x (65, 4): "
+        f"the backward launches none); checks {checks}")
+    if not all(checks.values()):
+        fail(f"training checks failed: {checks}")
+    check_t2i_launches("14 train", "run_training", launches, fwd,
+                       {"ADMUNet": TRAIN_STEPS * TRAIN_MICRO}, P2_PER_FWD)
+    return launches, model
+
+
+def _unit_rows(a) -> bool:
+    a = torch.as_tensor(a).float()
+    return bool(torch.isfinite(a).all()) and float((a.norm(dim=1) - 1).abs().max()) < 1e-3
+
+
+def phase_hspace_p2(model, device="cuda"):
+    """14.3: the h-space toolkit on the trained bf16 model at 0.6 T: the
+    encoder pullback (rank HSPACE_RANK, HSPACE_SWEEPS fixed sweeps), h_to_e
+    and inv_jac on its directions, global PCA over PCA_POP draws in chunks of
+    PCA_CHUNK, local PCA over PCA_PROBES probes. Returns the launches."""
+    from loco_edit_tpu_torch.core.rng import RngStream
+    from loco_edit_tpu_torch.diffusion import LinspaceDDIM
+    from loco_edit_tpu_torch.editing import hspace
+    from loco_edit_tpu_torch.models.adm import ADMUNet
+
+    px = model.cfg.image_size
+    sched = LinspaceDDIM()
+    t = float(sched.generation_grid(100).t[sched.nearest_step_index(100, HSPACE_T)])
+    rng = RngStream.from_seed(3)
+    x = rng.fork("x").normal((1, px, px, 3), device=device)
+    xs = rng.fork("population").normal((PCA_POP, px, px, 3), device=device)
+
+    def h_fn(z):
+        return model(z, t, return_h=True)[-1]
+
+    secs, out = {}, {}
+
+    def run():
+        for name, fn in (
+                ("pullback", lambda: hspace.local_encoder_pullback(
+                    h_fn, x, rng.fork("probes"), rank=HSPACE_RANK, min_iter=HSPACE_SWEEPS,
+                    max_iter=HSPACE_SWEEPS, tol=0.0, device=device)),
+                ("h_to_e", lambda: hspace.h_to_e(
+                    lambda z, u: model(z, t, h_inject=u), x, out["pullback"].u[0], device=device)),
+                ("inv_jac", lambda: hspace.inv_jac(
+                    h_fn, x, out["pullback"].u.reshape(HSPACE_RANK, -1), device=device)),
+                ("global_pca", lambda: hspace.global_pca_h(
+                    h_fn, xs, rank=HSPACE_RANK, chunk=PCA_CHUNK, device=device)),
+                ("local_pca", lambda: hspace.local_pca_h(
+                    h_fn, x, rng.fork("local"), rank=HSPACE_RANK, n_probes=PCA_PROBES,
+                    device=device))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            secs[name] = round(time.perf_counter() - t0, 3)
+
+    _, launches, fwd, total_s, peak = run_main_path(run, ADMUNet)
+    basis, de = out["pullback"], out["h_to_e"]
+    checks = {"pullback": _unit_rows(basis.vT) and basis.iters == HSPACE_SWEEPS,
+              "h_to_e": bool(torch.isfinite(de).all()) and float(de.abs().max()) > 0,
+              "inv_jac": _unit_rows(out["inv_jac"]),
+              "global_pca": _unit_rows(out["global_pca"][1])
+              and bool(torch.isfinite(out["global_pca"][0]).all()),
+              "local_pca": _unit_rows(out["local_pca"])}
+    log(f"[14 hspace] t={t:.1f}: seconds {secs}; h_mid {tuple(basis.u.shape[1:])}; basis s "
+        f"{basis.s.float().cpu().numpy().round(3).tolist()}; global PCA s "
+        f"{out['global_pca'][0].cpu().numpy().round(2).tolist()}; |h_to_e| max "
+        f"{float(de.abs().max()):.4f}; peak device memory {peak:.2f} GiB; checks {checks}")
+    if not all(checks.values()):
+        fail(f"h-space checks failed: {checks}")
+    # pullback 1 + sweeps, h_to_e 2, inv_jac 1, global PCA one a chunk,
+    # local PCA 2 (x, then the probes as one batch)
+    predicted = 1 + HSPACE_SWEEPS + 2 + 1 + -(-PCA_POP // PCA_CHUNK) + 2
+    check_t2i_launches("14 hspace", "h-space toolkit", launches, fwd,
+                       {"ADMUNet": predicted}, P2_PER_FWD)
+    return launches
+
+
+def phase_bpd_ancestral_p2(model, x0, device="cuda"):
+    """14.4: calc_bpd_loop with the learned sigma on one image over the
+    respaced schedule (its timestep map), p_sample_scan at SAMPLE_BATCH over
+    the same steps, unguided and with classifier guidance from a seeded
+    EncoderADMUNet on the model's trunk (attention pool), and one
+    SuperResADMUNet forward at the model's widths with doubled input
+    channels. Returns the launches."""
+    import dataclasses
+
+    from loco_edit_tpu_torch.core.rng import RngStream
+    from loco_edit_tpu_torch.diffusion import (GaussianDiffusionMath, NoiseSchedule,
+                                               p_sample_scan, respaced_schedule)
+    from loco_edit_tpu_torch.models.adm import ADMUNet
+    from loco_edit_tpu_torch.models.adm.unet import AttentionBlock, GroupNorm32
+    from loco_edit_tpu_torch.models.adm.variants import (EncoderADMUNet, EncoderHeadConfig,
+                                                         SuperResADMUNet, classifier_grad_fn)
+    from loco_edit_tpu_torch.models.base import init_random_weights_
+
+    cfg = model.cfg
+    px = cfg.image_size
+    sched, tmap = respaced_schedule(NoiseSchedule.linear(), RESPACED_STEPS)
+    math_ = GaussianDiffusionMath(sched)
+    tt = torch.as_tensor(tmap, device=device).float()
+    rng = RngStream.from_seed(4)
+    with torch.device(device):
+        enc = EncoderADMUNet(cfg, EncoderHeadConfig(pool="attention"))
+        sr = SuperResADMUNet(dataclasses.replace(cfg, in_channels=2 * cfg.in_channels))
+    for m, seed in ((enc, 7), (sr, 8)):
+        init_random_weights_(m, torch.Generator(device).manual_seed(seed))
+        m.requires_grad_(False).eval()
+    enc_per_fwd = (sum(isinstance(m, GroupNorm32) for m in enc.modules()),
+                   sum(isinstance(m, AttentionBlock) for m in enc.modules()))
+    y = torch.arange(SAMPLE_BATCH, device=device)
+    xT = rng.fork("xT").normal((SAMPLE_BATCH, px, px, 3), device=device)
+    stash = {}
+
+    def eps_fn(z, t):      # one forward a step: eps now, the variance next
+        eps, stash["frac"] = model(z, tt[t], return_sigma=True)
+        return eps
+
+    def frac_fn(z, t):
+        return stash.pop("frac")
+
+    secs, out = {}, {}
+
+    def run():
+        for name, fn in (
+                ("bpd", lambda: math_.calc_bpd_loop(
+                    lambda z, t: model(z, tt[t], return_sigma=True), x0, rng.fork("bpd"),
+                    learned_sigma=True)),
+                ("ancestral", lambda: p_sample_scan(
+                    eps_fn, xT, math_, rng.fork("ancestral"), logvar_frac_fn=frac_fn,
+                    device=device)),
+                ("guided", lambda: p_sample_scan(
+                    eps_fn, xT, math_, rng.fork("ancestral"), logvar_frac_fn=frac_fn,
+                    cond_grad_fn=classifier_grad_fn(lambda z, t: enc(z, tt[t]), y),
+                    guidance_scale=1.0, device=device)),
+                ("superres", lambda: sr(x0, 500.0, torch.nn.functional.avg_pool2d(
+                    x0.permute(0, 3, 1, 2), 4).permute(0, 2, 3, 1)))):
+            t0 = time.perf_counter()
+            with torch.no_grad() if name == "superres" else contextlib.nullcontext():
+                out[name] = fn()
+            torch.cuda.synchronize()
+            secs[name] = round(time.perf_counter() - t0, 3)
+
+    _, launches, fwd, total_s, peak = run_main_path(run, ADMUNet, EncoderADMUNet)
+    bpd = out["bpd"]
+    shift = float((out["guided"] - out["ancestral"]).abs().max())
+    checks = {"bpd": bool(torch.isfinite(bpd["total_bpd"]).all())
+              and tuple(bpd["vb"].shape) == (1, RESPACED_STEPS),
+              "ancestral": bool(torch.isfinite(out["ancestral"]).all())
+              and tuple(out["ancestral"].shape) == (SAMPLE_BATCH, px, px, 3),
+              "guided": bool(torch.isfinite(out["guided"]).all()) and shift > 0,
+              "superres": bool(torch.isfinite(out["superres"]).all())
+              and tuple(out["superres"].shape) == (1, px, px, 3)}
+    log(f"[14 bpd/ancestral] respaced {RESPACED_STEPS} of {NoiseSchedule.linear().num_train_timesteps} "
+        f"steps (the cut); seconds {secs}; total_bpd {bpd['total_bpd'].cpu().numpy().round(4).tolist()} "
+        f"(prior {bpd['prior_bpd'].cpu().numpy().round(6).tolist()}); sample range "
+        f"[{float(out['ancestral'].min()):.3f}, {float(out['ancestral'].max()):.3f}]; guidance moved "
+        f"the samples by up to {shift:.4f}; encoder {enc_per_fwd[0]} GN + {enc_per_fwd[1]} "
+        f"attention a forward; peak device memory {peak:.2f} GiB; checks {checks}")
+    if not all(checks.values()):
+        fail(f"likelihood / sampling checks failed: {checks}")
+    # bpd one a step, unguided and guided one a step (the variance shares
+    # it), SuperRes one; the encoder one a guided step
+    check_t2i_launches("14 bpd/ancestral", "bpd, sampling, SuperRes", launches, fwd,
+                       {"ADMUNet": 3 * RESPACED_STEPS + 1, "EncoderADMUNet": RESPACED_STEPS},
+                       {**P2_PER_FWD, "EncoderADMUNet": enc_per_fwd})
+    return launches
+
+
+def phase_train_and_toolkit(work_dir, model_name="FFHQ_P2", device="cuda"):
+    """Phase 14. Returns {path: launches} for the kernels line."""
+    phase_train_vs_cpu(model_name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train, model = phase_train_p2(work_dir, model_name, device)
+    model.requires_grad_(False).eval()
+    hs = phase_hspace_p2(model, device)
+    from PIL import Image
+
+    img = np.asarray(Image.open(os.path.join(work_dir, "train", "00", "00000.png")), np.float32)
+    x0 = torch.from_numpy(img / 127.5 - 1.0)[None].to(device)
+    return {"train_p2": train, "hspace_p2": hs,
+            "bpd_ancestral_p2": phase_bpd_ancestral_p2(model, x0, device)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -2253,6 +2650,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve_lcm = phase_serve_lcm(work_dir)
     log(f"[13 serve] phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work_dir:
+        toolkit = phase_train_and_toolkit(work_dir)
+    log(f"[14 train] phase: {time.perf_counter() - t0:.1f} s")
 
     paths = {"p2_flagship": p2_launches, "ddpm_cli_edit": edit_launches,
              "ddpm_cli_group_edit": group_launches, "sd_cli_edit": sd_edit,
@@ -2260,7 +2663,7 @@ def main() -> int:
              "lcm_cli_edit": lcm_edit, "lcm_delta_zt_via_grad": lcm_delta,
              "lcm_f32_cli_edit": lcm_f32,
              "if_cli_edit": if_edit, "p2_f32_sam_cli_edit": p2_sam_edit,
-             "serve_p2": serve_p2, "serve_lcm": serve_lcm}
+             "serve_p2": serve_p2, "serve_lcm": serve_lcm, **toolkit}
     check_main_path_calls(rows)
     kernels = [
         summarize(rows, "groupnorm", "loco_edit_tpu_torch/csrc/groupnorm.cu",

@@ -50,10 +50,14 @@ class RngStream:
         """Child stream for an integer step (a sampling step, a call count)."""
         return RngStream(seed=_mix(self.seed, step))
 
+    def generator(self, device="cpu") -> torch.Generator:
+        """A torch.Generator on `device` seeded from this stream."""
+        return torch.Generator(device=device).manual_seed(self.seed)
+
     def normal(self, shape, *, device, dtype=torch.float32) -> torch.Tensor:
         """Standard normal draw of `shape` from this stream's generator."""
-        gen = torch.Generator(device=device).manual_seed(self.seed)
-        return torch.randn(tuple(shape), generator=gen, device=device, dtype=dtype)
+        return torch.randn(tuple(shape), generator=self.generator(device),
+                           device=device, dtype=dtype)
 
 
 def seed_everything(seed: int) -> RngStream:

@@ -12,6 +12,9 @@ from loco_edit_tpu_torch.diffusion.scheduler import (
     pmp,
 )
 from loco_edit_tpu_torch.diffusion.sampling import ddim_generate, ddim_invert
+from loco_edit_tpu_torch.diffusion.losses import GaussianDiffusionMath
+from loco_edit_tpu_torch.diffusion.respace import respaced_schedule
+from loco_edit_tpu_torch.diffusion.ancestral import p_sample_scan
 
 __all__ = [
     "linear_betas",
@@ -25,4 +28,7 @@ __all__ = [
     "pmp",
     "ddim_generate",
     "ddim_invert",
+    "GaussianDiffusionMath",
+    "respaced_schedule",
+    "p_sample_scan",
 ]

@@ -4,8 +4,10 @@ loco_edit_tpu/models/adm/unet.py).
 Same function and the same parameter names as the Flax model: sinusoidal time
 embedding -> MLP; residual blocks with scale-shift GroupNorm conditioning;
 self-attention at the configured downsample ratios; skip-concat decoder;
-learned-sigma channel split. The public layout is the JAX package's: images
-are NHWC (B, H, W, C). Inside, activations are NCHW tensors in
+learned-sigma channel split; dropout in the residual blocks where the config
+has it, active only in training mode (the JAX package's `train=True`); the
+h-space tap and injection at the bottleneck. The public layout is the JAX
+package's: images and the bottleneck feature are NHWC (B, H, W, C). Inside, activations are NCHW tensors in
 `torch.channels_last` memory (an NHWC array permuted is exactly that), so
 cuDNN and the GroupNorm kernel both see channels-contiguous memory.
 
@@ -88,6 +90,8 @@ class ResBlock(nn.Module):
         e_dim = 2 * spec.out_ch if cfg.use_scale_shift_norm else spec.out_ch
         self.emb_dense = nn.Linear(cfg.time_embed_dim, e_dim, dtype=cfg.dtype)
         self.out_norm = GroupNorm32(spec.out_ch)
+        if cfg.dropout > 0:
+            self.dropout = nn.Dropout(cfg.dropout)
         self.out_conv = _conv(spec.out_ch, spec.out_ch, cfg)
         if spec.out_ch != spec.in_ch:
             self.skip_conv = _conv(spec.in_ch, spec.out_ch, cfg, kernel=1)
@@ -106,7 +110,10 @@ class ResBlock(nn.Module):
             h = self.out_norm(h) * (1 + scale) + shift
         else:
             h = self.out_norm(h + e)
-        h = self.out_conv(F.silu(h))
+        h = F.silu(h)
+        if self.cfg.dropout > 0:
+            h = self.dropout(h)
+        h = self.out_conv(h)
         if spec.out_ch != spec.in_ch:
             x = self.skip_conv(x)
         return x + h
@@ -181,7 +188,8 @@ class ADMUNet(nn.Module):
     """x: (B, H, W, C) NHWC; t: scalar or (B,) fractional timesteps.
 
     Returns eps (B, H, W, C_in); with cfg.learn_sigma and return_sigma=True,
-    returns (eps, logvar) from the channel split.
+    returns (eps, logvar) from the channel split. Dropout follows the
+    module's mode: the loaders put models in eval mode.
     """
 
     def __init__(self, cfg: ADMConfig):
@@ -206,7 +214,13 @@ class ADMUNet(nn.Module):
         init_random_weights_(self, generator)
         return self
 
-    def forward(self, x, t, y=None, *, return_sigma: bool = False):
+    def forward(self, x, t, y=None, *, return_sigma: bool = False,
+                return_h: bool = False, h_inject: torch.Tensor | None = None):
+        """return_h: also return the mid-block bottleneck feature h_mid, NHWC
+        (the reference's h-space tap, get_h); h_inject: an offset added to the
+        bottleneck before decoding, any shape holding H*W*C values in (H, W, C)
+        order, as the JAX package reads it. Returns out, or with return_h
+        (out,) + (h_mid,), out itself a tuple with return_sigma."""
         cfg = self.cfg
         b = x.shape[0]
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
@@ -225,6 +239,10 @@ class ADMUNet(nn.Module):
             h = getattr(self, f"input_{i}")(h, emb)
             skips.append(h)
         h = self.middle(h, emb)
+        h_mid = h
+        if h_inject is not None:
+            _, c, hh, ww = h.shape
+            h = h + h_inject.reshape(hh, ww, c).permute(2, 0, 1)[None].to(h.dtype)
         for i in range(len(self.layout.output_blocks)):
             h = torch.cat([h, skips.pop()], dim=1)
             h = getattr(self, f"output_{i}")(h, emb)
@@ -233,5 +251,9 @@ class ADMUNet(nn.Module):
 
         if cfg.learn_sigma:
             eps, logvar = h.chunk(2, dim=-1)
-            return (eps, logvar) if return_sigma else eps
-        return (h, None) if return_sigma else h
+            out = (eps, logvar) if return_sigma else eps
+        else:
+            out = (h, None) if return_sigma else h
+        if return_h:
+            return (out if isinstance(out, tuple) else (out,)) + (h_mid.permute(0, 2, 3, 1),)
+        return out

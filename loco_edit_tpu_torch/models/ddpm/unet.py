@@ -44,6 +44,7 @@ class DDPMConfig:
     ch_mult: tuple[int, ...] = (1, 1, 2, 2, 4, 4)
     num_res_blocks: int = 2
     attn_resolutions: tuple[int, ...] = (16,)
+    dropout: float = 0.0                 # active only in training mode
     resamp_with_conv: bool = True
     dtype: torch.dtype = torch.float32   # compute dtype of convs / dense layers
 
@@ -92,6 +93,8 @@ class ResnetBlock(nn.Module):
         self.conv1 = _conv(in_ch, out_ch, cfg.dtype)
         self.temb_proj = nn.Linear(cfg.temb_ch, out_ch, dtype=cfg.dtype)
         self.norm2 = Norm(out_ch)
+        if cfg.dropout > 0:
+            self.dropout = nn.Dropout(cfg.dropout)
         self.conv2 = _conv(out_ch, out_ch, cfg.dtype)
         if in_ch != out_ch:
             self.nin_shortcut = _conv(in_ch, out_ch, cfg.dtype, kernel=1)
@@ -100,7 +103,10 @@ class ResnetBlock(nn.Module):
         h = self.conv1(F.silu(self.norm1(x)))
         e = self.temb_proj(F.silu(temb))
         h = h + e[:, :, None, None].to(h.dtype)
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = F.silu(self.norm2(h))
+        if hasattr(self, "dropout"):
+            h = self.dropout(h)
+        h = self.conv2(h)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h

@@ -33,9 +33,28 @@ def adm_params_from_flax(flat: dict[str, np.ndarray], cfg) -> dict[str, torch.Te
     already q|k|v-contiguous, so the qkv Linear keeps that packing. Raises
     ValueError unless the result matches the module tree of `cfg` key for
     key and shape for shape."""
+    return _from_flax(flat, lambda: ADMUNet(cfg))
+
+
+def superres_params_from_flax(flat: dict[str, np.ndarray], cfg) -> dict[str, torch.Tensor]:
+    """A SuperResADMUNet(cfg) state_dict from its flat Flax parameters (the
+    wrapped U-Net under the "unet/" prefix)."""
+    from loco_edit_tpu_torch.models.adm.variants import SuperResADMUNet
+
+    return _from_flax(flat, lambda: SuperResADMUNet(cfg))
+
+
+def encoder_params_from_flax(flat: dict[str, np.ndarray], cfg, head) -> dict[str, torch.Tensor]:
+    """An EncoderADMUNet(cfg, head) state_dict from its flat Flax parameters."""
+    from loco_edit_tpu_torch.models.adm.variants import EncoderADMUNet
+
+    return _from_flax(flat, lambda: EncoderADMUNet(cfg, head))
+
+
+def _from_flax(flat, build) -> dict[str, torch.Tensor]:
     sd = flax_to_state_dict(flat)
     with torch.device("meta"):
-        check_state_dict(sd, ADMUNet(cfg), "Flax params")
+        check_state_dict(sd, build(), "Flax params")
     return sd
 
 
