@@ -141,6 +141,23 @@ Phases (any failure raises; nothing is caught and skipped):
      the same steps, unguided and with classifier guidance from a seeded
      EncoderADMUNet on P2's trunk (attention pool), one SuperResADMUNet
      forward with doubled input channels. Outputs finite, unit-norm rows.
+ 15. The mesh and parallel modules on FFHQ_P2 at full width, in two ranks
+     spawned on the one card (torch.distributed over gloo: NCCL takes one
+     rank a card), each join under P15_TIMEOUT_S, each held to the same
+     paths in this process: two f32 data-parallel train steps at 4 rows a
+     rank (one process: 8; the same global batch, timesteps and noise from
+     one RngStream): loss, grad_norm and the parameter checksum to 1e-4;
+     four bf16 data-parallel steps on a fixed batch, whose loss must fall;
+     the f32 rank 5+5 basis, 5 fixed sweeps, probes split over the ranks:
+     mean squared principal cosine >= 0.999 a group; 8 bf16 strip frames
+     split 4 + 4 (the boosted tail's noise drawn for all 8 and sliced):
+     relative L2 within BF16_FWD_RTOL; the f32 forward and one J.v at batch
+     1 with the rows split over the ranks: FWD_RTOL. The split path must
+     launch GroupNorm's statistics and normalize entries and no fused one.
+     Each rank prints its backend, device and launches. Phase 2 gains the
+     rows of that split path: GroupNorm's two entries at every P2 shape at
+     half height (f32, bf16), sums -> apply holding the fused entry's bits
+     at full height, and attention with the local queries against all keys.
 
 TF32: the kernel-vs-plain and card-vs-CPU checks (phases 2, 3 and those of
 7, 9, 10, 11 and 14) run with TF32 off for matmuls and convolutions, and phases
@@ -150,10 +167,12 @@ itself sets (its f32 entry points turn TF32 off: core/device.py).
 
 Launch counts are set to 0 just before each main path (phases 4, 6 edit,
 6 group, 8 edit, 8 delta, 8 invert, 9 edit, 9 delta, 9 f32 edit, 10 edit,
-12 edit, each request of 13, and 14's training, h-space and likelihood /
-sampling runs) and read just after; phase 13's sum per server is the
-kernels line's serve_p2 and serve_lcm, phase 14's runs are train_p2,
-hspace_p2 and bpd_ancestral_p2. The last three lines of standard output are the card's name and
+12 edit, each request of 13, 14's training, h-space and likelihood /
+sampling runs, and each path of 15 in each rank) and read just after;
+phase 13's sum per server is the kernels line's serve_p2 and serve_lcm,
+phase 14's runs are train_p2, hspace_p2 and bpd_ancestral_p2, phase 15's
+the p15_* paths summed over the ranks (the GroupNorm split entries have
+entries of their own). The last three lines of standard output are the card's name and
 power limit (nvidia-smi), the kernels' JSON line and the result line.
 """
 
@@ -2549,6 +2568,420 @@ def phase_train_and_toolkit(work_dir, model_name="FFHQ_P2", device="cuda"):
             "bpd_ancestral_p2": phase_bpd_ancestral_p2(model, x0, device)}
 
 
+# -- phase 15: the mesh and parallel modules, two ranks on the one card ----------
+
+P15_WORLD = 2
+P15_TIMEOUT_S = 600          # each join; a rank that fails or hangs fails the phase
+P15_TRAIN_STEPS, P15_BF16_STEPS, P15_BATCH = 2, 4, 8     # P15_BATCH: the global batch
+P15_RANK, P15_SWEEPS, P15_FRAMES = 5, 5, 8
+P15_TRAIN_RTOL = 1e-4        # loss, grad_norm, checksum: ranks vs one process
+P15_OVERLAP = 0.999          # basis: mean squared principal cosine per group
+
+
+def _p15_denoiser(dtype, device):
+    from loco_edit_tpu_torch.models.registry import load_adm_denoiser
+
+    return load_adm_denoiser("FFHQ_P2", dtype=dtype, device=device, seed=0)
+
+
+def _p15_counted(name, fn, out):
+    """fn() with every kernel's launch count set to 0 just before and read
+    just after (out["launches"][name]); the call shapes recorded."""
+    from loco_edit_tpu_torch.ops import groupnorm as gn
+    from loco_edit_tpu_torch.ops.flash_attention import flash_attention_cuda
+
+    counted = (("groupnorm", gn.group_norm_cuda), ("flash_attention", flash_attention_cuda),
+               ("groupnorm_sums", gn.group_norm_sums_cuda),
+               ("groupnorm_apply", gn.group_norm_apply_cuda))
+    sums_fn, apply_fn = gn.group_norm_sums_cuda, gn.group_norm_apply_cuda
+    gn.group_norm_sums_cuda = _Recorder(sums_fn, lambda x, num_groups=32: call_key(
+        "groupnorm_sums", x.dtype, x.shape))
+    gn.group_norm_apply_cuda = _Recorder(
+        apply_fn, lambda x, sums, n, scale, bias, num_groups=32, eps=1e-5: call_key(
+            "groupnorm_apply", x.dtype, x.shape, eps))
+    try:
+        with recording_calls():
+            for _, f in counted:
+                f.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            out["seconds"][name] = time.perf_counter() - t0
+            out["launches"][name] = {k: f.launches for k, f in counted}
+    finally:
+        gn.group_norm_sums_cuda, gn.group_norm_apply_cuda = sums_fn, apply_fn
+    return res
+
+
+def p15_paths(sharded: bool, work_dir: str, device="cuda") -> dict:
+    """Phase 15's paths on FFHQ_P2 at full width, over meshes of every rank
+    (sharded) or in one process: f32 data-parallel train steps, bf16 ones,
+    the probe-sharded f32 rank 5+5 basis, the data-sharded bf16 strips and
+    the spatially split f32 forward and J.v. Returns numpy results, the
+    launches of each path and the seconds it took."""
+    from loco_edit_tpu_torch.core.mesh import DATA_AXIS, PROBE_AXIS, make_mesh
+    from loco_edit_tpu_torch.core.rng import RngStream
+    from loco_edit_tpu_torch.diffusion import LinspaceDDIM, NoiseSchedule
+    from loco_edit_tpu_torch.editing import dual_subspace_iteration
+    from loco_edit_tpu_torch.editing.pullback import pmp_pullback_fn
+    from loco_edit_tpu_torch.parallel.checks import replicated_params_checksum
+    from loco_edit_tpu_torch.parallel.sp import make_sp_mesh, sp_denoiser
+    from loco_edit_tpu_torch.pipelines import UncondEditConfig, UncondEditPipeline
+    from loco_edit_tpu_torch.training import (TrainConfig, UniformSampler,
+                                              create_train_state, make_train_step)
+
+    out = {"launches": {}, "seconds": {}}
+    n = P15_WORLD if sharded else 1
+    rank = 0
+    if sharded:
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
+    rng = np.random.default_rng(31)
+    den = _p15_denoiser(torch.float32, device)
+    px = den.sample_shape[0]
+    x0 = torch.from_numpy(np.tanh(rng.normal(size=(P15_BATCH, px, px, 3))).astype(np.float32))
+    b = P15_BATCH // n
+    x0_mine = x0[rank * b:(rank + 1) * b].to(device)
+
+    # microbatches of 4 in both runs (one microbatch a rank): the kernels see
+    # batch 4; the global noise is drawn once from the step's stream
+    micro = 1 if sharded else P15_BATCH // 4
+
+    def train_f32():
+        model = _p15_denoiser(torch.float32, device).meta["model"]
+        mesh = make_mesh({DATA_AXIS: n}) if sharded else None
+        cfg = TrainConfig(microbatches=micro)
+        state = create_train_state(model, cfg, mesh=mesh)
+        step = make_train_step(model, cfg, NoiseSchedule.linear(), mesh=mesh)
+        root, sampler, mets = RngStream.from_seed(5), UniformSampler(1000), []
+        for s in range(P15_TRAIN_STEPS):
+            srng = root.at_step(s)
+            t, w = sampler.sample(srng, P15_BATCH)
+            noise = srng.fork("noise").normal(x0.shape, device=device)
+            state, met = step(state, x0_mine, t.to(device), w.to(device), noise=noise)
+            mets.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+        return {"metrics": mets,
+                "checksum": float(replicated_params_checksum(state.params))}
+
+    def train_bf16():
+        model = _p15_denoiser(torch.bfloat16, device).meta["model"]
+        mesh = make_mesh({DATA_AXIS: n}) if sharded else None
+        cfg = TrainConfig(microbatches=micro)
+        state = create_train_state(model, cfg, mesh=mesh)
+        step = make_train_step(model, cfg, NoiseSchedule.linear(), mesh=mesh)
+        t = torch.full((P15_BATCH,), 400, device=device)
+        w = torch.ones(P15_BATCH, device=device)
+        noise = RngStream.from_seed(6).normal(x0.shape, device=device)
+        losses = []
+        for _ in range(P15_BF16_STEPS):
+            state, met = step(state, x0_mine.bfloat16(), t, w, noise=noise.bfloat16())
+            losses.append(float(met["loss"]))
+        return losses
+
+    grid = LinspaceDDIM().generation_grid(100)
+    idx = LinspaceDDIM().nearest_step_index(100, 0.6)
+    t_edit, ab = float(grid.t[idx]), float(grid.alpha_bar[idx])
+    x1 = torch.from_numpy((rng.normal(size=(1, px, px, 3)) * 0.5).astype(np.float32)).to(device)
+    v1 = torch.from_numpy(rng.normal(size=(1, px, px, 3)).astype(np.float32)).to(device)
+
+    def basis():
+        m = torch.zeros(1, px, px, 3, device=device)
+        m[:, px // 4:3 * px // 4, px // 4:3 * px // 4] = 1.0
+        pm = make_mesh({PROBE_AXIS: n}) if sharded else None
+        root = RngStream.from_seed(7)
+        a, bb = dual_subspace_iteration(
+            pmp_pullback_fn(den.eps_fn, ab, t_edit), x1, root.fork("a"), root.fork("b"),
+            rank_a=P15_RANK, rank_b=P15_RANK, mask_a=m, mask_b=1 - m,
+            min_iter=P15_SWEEPS, max_iter=P15_SWEEPS, tol=0.0, probe_mesh=pm,
+            probe_chunk=None if sharded else P15_RANK)
+        return [a.vT.cpu().numpy(), bb.vT.cpu().numpy()]
+
+    def strips():
+        den16 = _p15_denoiser(torch.bfloat16, device)
+        cfg = UncondEditConfig(for_steps=100, inv_steps=100, edit_t=0.6,
+                               performance_boosting_t=0.2, mesh_data=n if sharded else 0,
+                               result_folder=work_dir, save_images=False)
+        pipe = UncondEditPipeline(den16, cfg, RngStream.from_seed(9), device=device)
+        frames = RngStream.from_seed(10).normal((P15_FRAMES, px, px, 3), device=device)
+        return pipe.generate_chunked(frames, pipe.edit_t_idx, None, boost=True).cpu().numpy()
+
+    def spatial():
+        eps = sp_denoiser(den.eps_fn, make_sp_mesh(n)) if sharded else den.eps_fn
+        with torch.no_grad():
+            e = eps(x1, t_edit)
+        jv = torch.func.jvp(pmp_pullback_fn(eps, ab, t_edit), (x1,), (v1,))[1]
+        return {"eps": e.cpu().numpy(), "jv": jv.cpu().numpy()}
+
+    out["train_f32"] = _p15_counted("p15_train_f32", train_f32, out)
+    if sharded:     # the ranks alone: the loss must fall
+        out["train_bf16"] = _p15_counted("p15_train_bf16", train_bf16, out)
+    out["basis"] = _p15_counted("p15_basis", basis, out)
+    out["strips"] = _p15_counted("p15_strips", strips, out)
+    out["sp"] = _p15_counted("p15_sp", spatial, out)
+    return out
+
+
+def _p15_rank(rank, port, work_dir, device, queue):
+    """One rank of phase 15: start the group, run p15_paths sharded, send
+    the result (or the traceback) to the parent."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from loco_edit_tpu_torch.core.mesh import initialize_distributed
+
+        backend = initialize_distributed(f"127.0.0.1:{port}", P15_WORLD, rank, device=device)
+        dev = torch.cuda.current_device()
+        out = p15_paths(True, work_dir, device)
+        out.update(backend=backend, device=f"cuda:{dev} {torch.cuda.get_device_name(dev)}",
+                   calls=dict(MAIN_PATH_CALLS), peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        queue.put((rank, "ok", out))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:   # noqa: BLE001: the parent fails the phase with it
+        queue.put((rank, "error", traceback.format_exc()))
+
+
+def p15_spawn(work_dir, device):
+    """Both ranks, each join under P15_TIMEOUT_S; kills them on failure."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_p15_rank, args=(r, port, work_dir, device, q))
+             for r in range(P15_WORLD)]
+    results = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + P15_TIMEOUT_S
+        while len(results) < P15_WORLD:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                fail(f"[15 mesh] ranks {sorted(set(range(P15_WORLD)) - set(results))} "
+                     f"did not finish in {P15_TIMEOUT_S} s")
+            try:
+                r, status, out = q.get(timeout=min(left, 5.0))
+            except queue_mod.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and i not in results]
+                if dead:
+                    fail(f"[15 mesh] ranks {dead} died without a result")
+                continue
+            if status != "ok":
+                fail(f"[15 mesh] rank {r} failed:\n{out}")
+            results[r] = out
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+            if p.exitcode != 0:
+                fail(f"[15 mesh] a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [results[r] for r in range(P15_WORLD)]
+
+
+def sp_gn_rows(gn_calls, g):
+    """GroupNorm's statistics and normalize entries at the half-height shapes
+    spatial parallelism over two ranks gives them (batch 1, f32 and bf16):
+    each against its plain version (phase 2's tolerances), timed beside its
+    bound; and at every full-height shape sums -> apply must give the fused
+    entry's bits (one rank)."""
+    from loco_edit_tpu_torch.ops.groupnorm import (group_norm_apply_cuda,
+                                                   group_norm_apply_plain, group_norm_cuda,
+                                                   group_norm_sums_cuda, group_norm_sums_plain)
+
+    rows, not_equal = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        for shape in sorted(set(gn_calls)):
+            c, h, w, eps = shape
+            per = gn_calls.count(shape)
+            x = (torch.randn(1, h, w, c, device="cuda", generator=g) * 2 + 0.3).to(dtype)
+            x = x.permute(0, 3, 1, 2)
+            s = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
+            bias = 0.1 * torch.randn(c, device="cuda", generator=g)
+            fused = group_norm_cuda(x, s, bias, eps=eps)
+            split = group_norm_apply_cuda(x, group_norm_sums_cuda(x), h * w * c // 32, s,
+                                          bias, eps=eps)
+            if not torch.equal(fused, split):
+                not_equal.append((dt, shape))
+            xh = x[:, :, :h // 2].contiguous(memory_format=torch.channels_last)
+            sums = group_norm_sums_cuda(xh)
+            n = (h // 2) * w * c // 32 * P15_WORLD
+            full = 2 * sums            # the all-reduce over two alike bands
+            plain_sums = group_norm_sums_plain(xh)
+            err_s = (sums - plain_sums).abs().max().item()
+            y = group_norm_apply_cuda(xh, full, n, s, bias, eps=eps)
+            err_a = (y.float() - group_norm_apply_plain(xh, full, n, s, bias, eps=eps)
+                     .float()).abs().max().item()
+            nb = xh.numel() * xh.element_size()
+            common = dict(model="P2-SP2", dtype=dt, per_forward=per, eps=None,
+                          shape=[1, c, h // 2, w], route="vec16-split")
+            sb, sby = bound(nb + 2 * 32 * 4, 2 * xh.numel(), "float32_fma")
+            rows.append(dict(common, kernel="groupnorm_sums", max_abs_err=err_s,
+                             # f32 sums: phase 2's f32 GroupNorm tolerance, relative
+                             tol=TOL[("groupnorm", "float32")] * max(1.0, float(
+                                 plain_sums.abs().max())),
+                             ms=cuda_ms(lambda: group_norm_sums_cuda(xh)),
+                             plain_ms=cuda_ms(lambda: group_norm_sums_plain(xh)),
+                             library_ms=None, bound_ms=sb, bound_by=sby))
+            ab_, aby = bound(2 * nb + 2 * c * 4 + 2 * 32 * 4, 6 * xh.numel(), "float32_fma")
+            rows.append(dict(common, kernel="groupnorm_apply", eps=eps, max_abs_err=err_a,
+                             tol=TOL[("groupnorm", dt)],
+                             ms=cuda_ms(lambda: group_norm_apply_cuda(xh, full, n, s, bias,
+                                                                      eps=eps)),
+                             plain_ms=cuda_ms(lambda: group_norm_apply_plain(
+                                 xh, full, n, s, bias, eps=eps)),
+                             library_ms=None, bound_ms=ab_, bound_by=aby))
+            rows[-1]["fused_full_ms"] = cuda_ms(lambda: group_norm_cuda(x, s, bias, eps=eps))
+    for r in rows:
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        log(f"[2 kernels] {r['model']:9s} {r['kernel']:15s} {r['dtype']:8s} "
+            f"{str(r['shape']):25s} x{r['per_forward']}/fwd err {r['max_abs_err']:.2e} "
+            f"(tol {r['tol']:.2e}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']}) share {r['bound_share']:.3f}"
+            + (f"; fused entry at full height {r['fused_full_ms']:.4f} ms"
+               if "fused_full_ms" in r else ""))
+    log(f"[2 kernels] GroupNorm sums -> apply against the fused entry at "
+        f"{len(set(gn_calls)) * 2} full-height shapes (one rank): "
+        f"{'the same bits' if not not_equal else f'differ at {not_equal}'}")
+    for dt in ("float32", "bfloat16"):
+        mine = [r for r in rows if r["dtype"] == dt]
+        tot = {k: sum(r[k] * r["per_forward"] for r in mine if k in r)
+               for k in ("ms", "bound_ms", "fused_full_ms")}
+        log(f"[2 kernels] P2 forward, {dt}, batch 1, rows split over two ranks: sums + "
+            f"apply {tot['ms']:.4f} ms a rank (bound {tot['bound_ms']:.4f}) against the "
+            f"fused entry at full height {tot['fused_full_ms']:.4f} ms")
+    if not_equal:
+        fail(f"GroupNorm sums -> apply differ from the fused entry: {not_equal}")
+    bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
+    if bad:
+        fail(f"GroupNorm split entries disagree with their plain versions: {bad}")
+    return rows
+
+
+def sp_kernel_rows(model):
+    """Phase 2's rows for spatial parallelism over two ranks (batch 1, one
+    P2 forward): the GroupNorm split entries at half height (sp_gn_rows) and
+    attention with the local queries against every key, f32."""
+    gn_calls, attn_calls = record_call_shapes(model, "P2")
+    g = torch.Generator("cuda").manual_seed(1)
+    rows = sp_gn_rows(gn_calls, g)
+    sp_attn = [(h, nq // P15_WORLD, nkv, d) for h, nq, nkv, d in attn_calls]
+    for shape in sorted(set(sp_attn)):
+        r = attn_row("P2-SP2", torch.float32, 1, shape, sp_attn.count(shape), g)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        log(f"[2 kernels] {r['model']:9s} flash_attention float32 {str(r['shape']):25s} "
+            f"{r['route']} x{r['per_forward']}/fwd err {r['max_abs_err']:.2e} (tol "
+            f"{r['tol']:.2e}, mutants {r['mutant_errs']}) kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
+            f"share {r['bound_share']:.3f}")
+        if not r["max_abs_err"] <= r["tol"] or not all(
+                e > r["tol"] for e in r["mutant_errs"].values()):
+            fail(f"attention at a spatially split shape: {r}")
+        rows.append(r)
+    return rows
+
+
+def phase_mesh(work_dir, device="cuda"):
+    """15: phase 15's paths in two ranks on the one card (gloo), each held
+    to the one-process run in this process. Returns the launches of each
+    path summed over the ranks, and records the ranks' call shapes."""
+    t0 = time.perf_counter()
+    ranks = p15_spawn(work_dir, device)
+    ranks_s = time.perf_counter() - t0
+    for r, o in enumerate(ranks):
+        log(f"[15 mesh] rank {r}: backend {o['backend']}, device {o['device']}, launches "
+            f"{o['launches']}, seconds {({k: round(v, 2) for k, v in o['seconds'].items()})}, "
+            f"peak {o['peak_gib']:.2f} GiB")
+        for k, n in o["calls"].items():
+            MAIN_PATH_CALLS[k] = MAIN_PATH_CALLS.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    one = p15_paths(False, work_dir, device)
+    one_s = time.perf_counter() - t1
+    checks, nums = {}, {}
+    for r, o in enumerate(ranks):
+        tr = [max(rel_err(torch.tensor(m[k]), torch.tensor(w_[k])) for k in m)
+              for m, w_ in zip(o["train_f32"]["metrics"], one["train_f32"]["metrics"])]
+        ck = abs(o["train_f32"]["checksum"] - one["train_f32"]["checksum"]) / abs(
+            one["train_f32"]["checksum"])
+        nums[f"rank{r}_train_rel"] = max(tr + [ck])
+        checks[f"rank{r}_train_f32"] = nums[f"rank{r}_train_rel"] <= P15_TRAIN_RTOL
+        losses = o["train_bf16"]
+        checks[f"rank{r}_bf16_loss_falls"] = bool(np.isfinite(losses).all()
+                                                  and losses[-1] < losses[0])
+        ov = []
+        for g_ in range(2):
+            cos = np.linalg.svd(o["basis"][g_] @ one["basis"][g_].T, compute_uv=False)
+            ov.append((float((cos ** 2).mean()), float(cos.min())))
+        nums[f"rank{r}_basis_overlap_mincos"] = ov
+        checks[f"rank{r}_basis"] = min(v for v, _ in ov) >= P15_OVERLAP
+        a, b_ = torch.from_numpy(o["strips"]), torch.from_numpy(one["strips"])
+        nums[f"rank{r}_strips_rel_l2"] = float((a - b_).norm() / b_.norm())
+        checks[f"rank{r}_strips"] = nums[f"rank{r}_strips_rel_l2"] <= BF16_FWD_RTOL
+        for k in ("eps", "jv"):
+            nums[f"rank{r}_sp_{k}_rel"] = rel_err(torch.from_numpy(o["sp"][k]),
+                                                  torch.from_numpy(one["sp"][k]))
+            checks[f"rank{r}_sp_{k}"] = nums[f"rank{r}_sp_{k}_rel"] <= FWD_RTOL
+        la = o["launches"]
+        checks[f"rank{r}_sp_uses_split_gn"] = (la["p15_sp"]["groupnorm"] == 0
+                                               and la["p15_sp"]["groupnorm_sums"] > 0
+                                               and la["p15_sp"]["groupnorm_apply"]
+                                               == la["p15_sp"]["groupnorm_sums"]
+                                               and la["p15_sp"]["flash_attention"] > 0)
+        checks[f"rank{r}_others_use_kernels"] = all(
+            la[p]["groupnorm"] > 0 and la[p]["flash_attention"] > 0
+            for p in ("p15_train_f32", "p15_train_bf16", "p15_basis", "p15_strips"))
+        checks[f"rank{r}_finite"] = bool(np.isfinite(o["strips"]).all()
+                                         and np.isfinite(o["sp"]["jv"]).all())
+    log(f"[15 mesh] FFHQ_P2 at full width in {P15_WORLD} ranks on one card: ranks "
+        f"{ranks_s:.1f} s (spawn, build load and all paths), the one-process runs "
+        f"{one_s:.1f} s ({({k: round(v, 2) for k, v in one['seconds'].items()})}); "
+        f"f32 train {P15_TRAIN_STEPS} steps at {P15_BATCH // P15_WORLD} a rank (one "
+        f"process {P15_BATCH}): loss/grad_norm/checksum tol {P15_TRAIN_RTOL:.0e}; bf16 "
+        f"losses rank 0 {[round(v, 5) for v in ranks[0]['train_bf16']]}; basis rank "
+        f"{P15_RANK}+{P15_RANK}, {P15_SWEEPS} sweeps (overlap tol {P15_OVERLAP}); strips "
+        f"{P15_FRAMES} frames (rel L2 tol {BF16_FWD_RTOL:.0e}, bf16); SP f32 eps and J.v "
+        f"(tol {FWD_RTOL:.0e}); numbers {nums}; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 15 checks failed: {checks}")
+    paths = {}
+    for o in ranks:
+        for path, la in o["launches"].items():
+            for k, v in la.items():
+                paths.setdefault(path, {}).setdefault(k, 0)
+                paths[path][k] += v
+    return paths
+
+
+def summarize_split(rows, name, launches):
+    """A kernels-line entry for a GroupNorm split entry: the sums over one
+    P2 forward's calls with the rows over two ranks (f32, batch 1: the SP
+    path's), per rank."""
+    mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "float32"]
+    tot = {k: sum(r[k] * r["per_forward"] for r in mine) for k in ("ms", "plain_ms", "bound_ms")}
+    by_bytes = sum(r["per_forward"] * r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
+    return {"name": name, "route": "cuda", "source": "loco_edit_tpu_torch/csrc/groupnorm.cu",
+            "replaces": "loco_edit_tpu/ops/pallas/groupnorm_stats.py:79",
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+            **tot, "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
+            "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -2569,6 +3002,7 @@ def main() -> int:
     den32 = load_adm_denoiser("FFHQ_P2", dtype=torch.float32, device="cuda", seed=0)
     with tf32_convs(False):
         rows = phase_kernels(den32.meta["model"], "P2")
+        rows += sp_kernel_rows(den32.meta["model"])
         phase_forward_vs_cpu(den32, "FFHQ_P2")
     del den32
     ddpm32 = load_ddpm_denoiser("CelebA_HQ_HF", dtype=torch.float32, device="cuda", seed=0)
@@ -2656,6 +3090,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work_dir:
         toolkit = phase_train_and_toolkit(work_dir)
     log(f"[14 train] phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work_dir:
+        mesh_paths = phase_mesh(work_dir)
+    log(f"[15 mesh] phase: {time.perf_counter() - t0:.1f} s")
 
     paths = {"p2_flagship": p2_launches, "ddpm_cli_edit": edit_launches,
              "ddpm_cli_group_edit": group_launches, "sd_cli_edit": sd_edit,
@@ -2663,7 +3103,9 @@ def main() -> int:
              "lcm_cli_edit": lcm_edit, "lcm_delta_zt_via_grad": lcm_delta,
              "lcm_f32_cli_edit": lcm_f32,
              "if_cli_edit": if_edit, "p2_f32_sam_cli_edit": p2_sam_edit,
-             "serve_p2": serve_p2, "serve_lcm": serve_lcm, **toolkit}
+             "serve_p2": serve_p2, "serve_lcm": serve_lcm, **toolkit,
+             **{k: {n: v[n] for n in ("groupnorm", "flash_attention")}
+                for k, v in mesh_paths.items()}}
     check_main_path_calls(rows)
     kernels = [
         summarize(rows, "groupnorm", "loco_edit_tpu_torch/csrc/groupnorm.cu",
@@ -2672,6 +3114,10 @@ def main() -> int:
         summarize(rows, "flash_attention", "loco_edit_tpu_torch/csrc/flash_attention.cu",
                   "loco_edit_tpu/ops/pallas/flash_attention.py:67",
                   {k: v["flash_attention"] for k, v in paths.items()}),
+        summarize_split(rows, "groupnorm_sums",
+                        {k: v["groupnorm_sums"] for k, v in mesh_paths.items()}),
+        summarize_split(rows, "groupnorm_apply",
+                        {k: v["groupnorm_apply"] for k, v in mesh_paths.items()}),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -108,13 +108,14 @@ def parse_args(argv=None):
              "payload either way)")
     add("--probe_chunk", type=int, default=0, help="0 = all probes batched")
     add("--mesh_probe", type=int, default=0,
-        help="shard probes over this many devices (0 = single device)")
+        help="split the probes over this many ranks (torchrun; 0 = one process)")
     add("--mesh_data", type=int, default=0,
-        help="DP-shard the walk-strip / batch-edit frame axis over this "
-             "many devices (0 = single device)")
+        help="split the walk-strip / batch-edit frame axis over this "
+             "many ranks (torchrun; 0 = one process)")
     add("--mesh_sp", type=int, default=0,
-        help="shard the image height over this many devices (spatial "
-             "parallelism for batch-1 inversion/pullback; 0 = off)")
+        help="split the image height over this many ranks (spatial "
+             "parallelism for batch-1 inversion/pullback, uncond engine; "
+             "0 = off)")
 
     # experiments
     add("--run_ddim_forward", type=str2bool, default=False)
@@ -177,21 +178,25 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-# flag -> (its default, the ROADMAP.md item that ports what it selects)
-UNPORTED = {
-    "mesh_probe": (0, "Queue A item 15 (core/mesh.py, parallel/)"),
-    "mesh_data": (0, "Queue A item 15 (core/mesh.py, parallel/)"),
-    "mesh_sp": (0, "Queue A item 15 (parallel/sp.py)"),
-}
+# flag -> (its default, the ROADMAP.md item that ports what it selects):
+# empty since every flag of the JAX CLI is ported
+UNPORTED: dict[str, tuple] = {}
 
 
 def check_supported(args) -> None:
     """Raise NotImplementedError for a flag set to a value the port cannot
-    honour yet, naming the ROADMAP.md item that ports it."""
+    honour yet (none remain), and ValueError for --mesh_sp on a T2I engine:
+    spatial parallelism applies to the uncond engine, as in the JAX CLI,
+    which ignores the flag there."""
     for flag, (default, item) in UNPORTED.items():
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)!r}: not ported yet, see ROADMAP.md {item}")
+    name = args.model_name
+    if args.mesh_sp > 1 and ("stable-diffusion" in name or "DeepFloyd" in name
+                             or "LCM" in name):
+        raise ValueError(f"--mesh_sp {args.mesh_sp}: spatial parallelism runs the "
+                         f"uncond engine only, not {name!r}")
 
 
 def preset(args):

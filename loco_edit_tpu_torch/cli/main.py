@@ -39,6 +39,13 @@ def build_uncond_pipeline(args):
 
     rng = seed_everything(args.seed)
     denoiser = load_denoiser(args)
+    if args.mesh_sp > 1:
+        import dataclasses
+
+        from loco_edit_tpu_torch.parallel.sp import make_sp_mesh, sp_denoiser
+
+        denoiser = dataclasses.replace(
+            denoiser, eps_fn=sp_denoiser(denoiser.eps_fn, make_sp_mesh(args.mesh_sp)))
     cfg = UncondEditConfig(
         for_steps=args.for_steps,
         inv_steps=args.inv_steps,
@@ -55,6 +62,8 @@ def build_uncond_pipeline(args):
         null_space_projection=args.null_space_projection,
         encoder_decoder_by_et=args.encoder_decoder_by_et,
         probe_chunk=args.probe_chunk or None,
+        mesh_probe=args.mesh_probe,
+        mesh_data=args.mesh_data,
         memory_bound=args.memory_bound,
         pixel_output=args.pixel_output,
         result_folder=args.result_folder,
@@ -117,17 +126,46 @@ def _sam_mask(args, x0, make_image=None):
         f"no cached mask at {mask_path}; run once with --sampling_mode true")
 
 
+def _save_grid(images, path: str) -> None:
+    """Write an image grid; with more than one rank, rank 0 writes."""
+    from loco_edit_tpu_torch.core.mesh import is_main_process
+    from loco_edit_tpu_torch.utils.io import save_image_grid
+
+    if is_main_process():
+        save_image_grid(images, path)
+
+
+def start_ranks(args, device) -> None:
+    """Under torchrun, start the process group (core/mesh.py); then check
+    that each mesh flag fits the world, raising make_mesh's ValueError
+    before any model is built, as the JAX CLI does with too few devices."""
+    from loco_edit_tpu_torch.core.mesh import (initialize_distributed,
+                                               resolve_axis_sizes, world_size)
+
+    initialize_distributed(device=device)
+    if args.mesh_sp > 1 and (args.mesh_probe > 1 or args.mesh_data > 1):
+        raise ValueError("--mesh_sp splits every model call over the ranks; it "
+                         "does not combine with --mesh_probe or --mesh_data")
+    for flag in ("mesh_probe", "mesh_data", "mesh_sp"):
+        n = getattr(args, flag)
+        if n > 1:
+            resolve_axis_sizes({flag[5:]: n}, world_size())
+
+
 def main(argv=None):
     """Parse, check, preset and dispatch. Returns main_dispatch's results,
     or with --verify_load the verifier's report. With --trace_dir the whole
     run is traced (utils/logger.py::device_trace: CPU activity, plus the
     card's when the run is on it) into <trace_dir>/trace.json."""
     from loco_edit_tpu_torch.cli.args import check_supported, parse_args, preset
+    from loco_edit_tpu_torch.core.cache import enable_compile_cache
     from loco_edit_tpu_torch.core.device import resolve_device
 
     args = parse_args(argv)
     check_supported(args)
     device = resolve_device(args.device)   # no card and no --device cpu: raise now
+    print(f"kernel build directory: {enable_compile_cache()}", flush=True)
+    start_ranks(args, device)
     if args.verify_load:
         from loco_edit_tpu_torch.cli.verify_load import verify_checkpoint
 
@@ -149,8 +187,6 @@ def main_dispatch(args) -> dict:
     SD and LCM, of run_edit_null_space_projection_xt for IF), "group" (the
     group-edit frames), "mask" (IF's DiffEdit mask), and "timings" (seconds
     per pipeline phase of "edit" and "group")."""
-    from loco_edit_tpu_torch.utils.io import save_image_grid
-
     if args.is_LCM:
         return _main_lcm(args)
     if args.is_stable_diffusion:
@@ -164,7 +200,7 @@ def main_dispatch(args) -> dict:
         h, w, c = denoiser.sample_shape
         xT = rng.fork("fwd").normal((5, h, w, c), device=pipe.device)
         x0 = pipe.generate(xT, 0, None).cpu().numpy()
-        save_image_grid(x0, os.path.join(args.result_folder, "DDIMforward.png"))
+        _save_grid(x0, os.path.join(args.result_folder, "DDIMforward.png"))
         results["forward"] = x0
 
     if args.run_ddim_inversion:
@@ -173,7 +209,7 @@ def main_dispatch(args) -> dict:
             raise SystemExit("--run_ddim_inversion needs a real image; "
                              "--dataset_name Random has none")
         xT = pipe.invert(x0).cpu().numpy()
-        save_image_grid(xT, os.path.join(args.result_folder, "DDIMinversion.png"))
+        _save_grid(xT, os.path.join(args.result_folder, "DDIMinversion.png"))
         results["inversion"] = xT
 
     if args.run_edit_null_space_projection:
@@ -218,6 +254,7 @@ def build_sd_pipeline(args):
         or "null+(for-null)+(edit-null)",
         memory_bound=args.memory_bound,
         probe_chunk=args.probe_chunk or None,
+        mesh_probe=args.mesh_probe, mesh_data=args.mesh_data,
         pixel_output=args.pixel_output,
         result_folder=args.result_folder)
     pipe = SDEditPipeline(b["unet_apply"], b["decode"], b["encode"],
@@ -244,6 +281,7 @@ def build_lcm_pipeline(args):
         non_semantic=args.non_semantic, use_sega=args.use_sega,
         memory_bound=args.memory_bound,
         probe_chunk=args.probe_chunk or None,
+        mesh_probe=args.mesh_probe, mesh_data=args.mesh_data,
         pixel_output=args.pixel_output,
         result_folder=args.result_folder)
     pipe = LCMEditPipeline(b["unet_apply"], b["decode"], b["prompt_encoder"], cfg,
@@ -270,6 +308,7 @@ def build_if_pipeline(args):
         null_space_projection=args.null_space_projection,
         tilda_v_score_type=args.tilda_v_score_type or "(for-edit)-direct",
         jacobian=args.jacobian, probe_chunk=args.probe_chunk or None,
+        mesh_probe=args.mesh_probe, mesh_data=args.mesh_data,
         memory_bound=args.memory_bound, pixel_output=args.pixel_output,
         result_folder=args.result_folder)
     pipe = IFEditPipeline(b["unet_apply"], b["prompt_encoder"], cfg, rng,
@@ -310,8 +349,6 @@ def _t2i_mask(args, x0: np.ndarray) -> np.ndarray:
 
 
 def _main_sd(args) -> dict:
-    from loco_edit_tpu_torch.utils.io import save_image_grid
-
     semantic = args.run_edit_null_space_projection_zt_semantic
     edit = args.run_edit_null_space_projection_zt or semantic
     mask = _t2i_cached_mask(args) if edit and args.use_mask else None
@@ -321,7 +358,7 @@ def _main_sd(args) -> dict:
         zT = rng.fork("fwd").normal((5,) + tuple(b["latent_shape"]), device=pipe.device)
         img = pipe.decode_to_image(pipe.generate(
             zT, pipe.prompt_set(args.for_prompt, args.edit_prompt), "null+(for-null)"))
-        save_image_grid(img, os.path.join(args.result_folder, "DDIMforward.png"))
+        _save_grid(img, os.path.join(args.result_folder, "DDIMforward.png"))
         results["forward"] = img
     if edit:
         if args.use_mask and mask is None:
@@ -336,8 +373,6 @@ def _main_sd(args) -> dict:
 
 
 def _main_lcm(args) -> dict:
-    from loco_edit_tpu_torch.utils.io import save_image_grid
-
     edit = args.run_edit_null_space_projection_zt
     mask = _t2i_cached_mask(args) if edit and args.use_mask else None
     pipe, b, rng = build_lcm_pipeline(args)
@@ -346,7 +381,7 @@ def _main_lcm(args) -> dict:
         # a batch of samples as a model-load check (the reference's LCMforward)
         zT = rng.fork("fwd").normal((5,) + tuple(b["latent_shape"]), device=pipe.device)
         img = pipe.decode_to_image(pipe.forward_steps(zT, args.for_prompt)[1])
-        save_image_grid(img, os.path.join(args.result_folder, "LCMforward.png"))
+        _save_grid(img, os.path.join(args.result_folder, "LCMforward.png"))
         results["forward"] = img
     if edit:
         if args.use_mask and mask is None:
@@ -360,8 +395,6 @@ def _main_lcm(args) -> dict:
 
 
 def _main_if(args) -> dict:
-    from loco_edit_tpu_torch.utils.io import save_image_grid
-
     semantic = args.run_edit_null_space_projection_xt_semantic
     edit = args.run_edit_null_space_projection_xt or semantic
     diffedit = args.mask_type == "diffedit"
@@ -372,7 +405,7 @@ def _main_if(args) -> dict:
         xT = rng.fork("fwd").normal((5,) + tuple(b["sample_shape"]), device=pipe.device)
         img = pipe.forward_steps(xT, pipe.prompt_set(args.for_prompt, args.edit_prompt),
                                  "null+(for-null)").cpu().numpy()
-        save_image_grid(img, os.path.join(args.result_folder, "IFforward.png"))
+        _save_grid(img, os.path.join(args.result_folder, "IFforward.png"))
         results["forward"] = img
     if edit:
         if args.use_mask and diffedit:

@@ -39,6 +39,18 @@
 //     card.
 //   Later work: fusing SiLU and the ResBlock scale-shift into launch 2, and
 //   one read for tensors that fit a thread-block cluster's shared memory.
+//
+// Two more entries expose the launches on their own, for spatial
+// parallelism (parallel/sp.py), where each rank holds a band of rows and
+// the statistics must be those of the whole image:
+//   - loco_group_norm_sums: launch 1 with the same fixed-order reduction,
+//     ending in the per-(element, group) f32 sum and sum of squares instead
+//     of mean and rstd;
+//   - loco_group_norm_apply: launch 2 from such sums (all-reduced across
+//     the ranks in between) and the element count n they cover; each thread
+//     forms its groups' mean and rstd with finalize(), the formula the
+//     fused entry's last block uses, so that sums -> apply gives the fused
+//     entry's bits on one rank.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,10 +97,20 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// mean and rstd of a group from its sum a, sum of squares a2 and count n:
+// var = max(E[x^2] - mean^2, 0), the product rounded on its own (no FMA).
+__device__ __forceinline__ void finalize(float a, float a2, float n, float eps,
+                                         float& mean, float& rstd) {
+  mean = a / n;
+  const float var = fmaxf(a2 / n - __fmul_rn(mean, mean), 0.f);
+  rstd = 1.f / sqrtf(var + eps);
+}
+
 // Launch 1. grid (chunks, B), block (C / vec / NV, rows). part: per-chunk group
 // sums then sums of squares, each (B, chunks, G); stats: mean (B, G) then
-// rstd (B, G); tickets: (B,) ints, 0 on entry and on exit.
-template <typename T, int NV>
+// rstd (B, G), or with kSums the group sums (B, G) then sums of squares
+// (B, G); tickets: (B,) ints, 0 on entry and on exit.
+template <typename T, int NV, bool kSums>
 __global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
                                 float* __restrict__ stats, int* __restrict__ tickets,
                                 int hw, int c, int groups, int chunk, float eps) {
@@ -200,22 +222,29 @@ __global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ par
       a += fs[g * kSubsets + k];
       a2 += fss[g * kSubsets + k];
     }
-    const float mean = a / n;
-    const float var = fmaxf(a2 / n - __fmul_rn(mean, mean), 0.f);
-    stats[b * groups + g] = mean;
-    stats[(nb + b) * groups + g] = 1.f / sqrtf(var + eps);
+    if (kSums) {
+      stats[b * groups + g] = a;
+      stats[(nb + b) * groups + g] = a2;
+    } else {
+      float mean, rstd;
+      finalize(a, a2, n, eps, mean, rstd);
+      stats[b * groups + g] = mean;
+      stats[(nb + b) * groups + g] = rstd;
+    }
   }
   if (tid == 0) tickets[b] = 0;
 }
 
 // Launch 2. grid (chunks, B), block (C / vec / NV, rows):
-// y = (x - mean) * rstd * scale + bias, in x's dtype.
-template <typename T, int NV>
+// y = (x - mean) * rstd * scale + bias, in x's dtype. stats holds mean and
+// rstd, or with kFromSums the sums of n elements a group, as launch 1 with
+// kSums writes them.
+template <typename T, int NV, bool kFromSums>
 __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
                                 const float* __restrict__ stats,
                                 const float* __restrict__ scale,
                                 const float* __restrict__ bias, int hw, int c,
-                                int groups, int chunk) {
+                                int groups, int chunk, float n, float eps) {
   constexpr int kVec = Vec<T>::kN;
   const int rows = blockDim.y;
   const int b = blockIdx.y;
@@ -229,8 +258,13 @@ __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
     for (int j = 0; j < kVec; ++j) {
       const int ch = ch0 + v * vstride + j;
       const int g = ch / cg;
-      mu[v][j] = stats[b * groups + g];
-      rs[v][j] = stats[(gridDim.y + b) * groups + g];
+      if (kFromSums) {
+        finalize(stats[b * groups + g], stats[(gridDim.y + b) * groups + g], n,
+                 eps, mu[v][j], rs[v][j]);
+      } else {
+        mu[v][j] = stats[b * groups + g];
+        rs[v][j] = stats[(gridDim.y + b) * groups + g];
+      }
       sc[v][j] = scale[ch];
       bi[v][j] = bias[ch];
     }
@@ -266,36 +300,63 @@ __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
+// mode: 0 = fused (stats then normalize), 1 = sums only into `out`
+// ((2, B, G) f32), 2 = normalize from the sums in `out` covering n elements.
 template <typename T, int NV>
-int launch(const void* x, void* y, const float* scale, const float* bias,
-           float* work, int* tickets, int b, int hw, int c, int groups,
-           float eps, int rows, int chunk, cudaStream_t stream) {
+int launch(int mode, const void* x, void* y, float* out, const float* scale,
+           const float* bias, float* work, int* tickets, int b, int hw, int c,
+           int groups, float n, float eps, int rows, int chunk,
+           cudaStream_t stream) {
   const int nchunks = (hw + chunk - 1) / chunk;
-  float* part = work;
-  float* stats = work + 2 * (size_t)b * nchunks * groups;
   const dim3 grid(nchunks, b), block(c / Vec<T>::kN / NV, rows);
+  if (mode == 2) {
+    gn_apply_kernel<T, NV, true><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), out, scale, bias, hw, c,
+        groups, chunk, n, eps);
+    return (int)cudaGetLastError();
+  }
+  float* part = work;
   const int fin = 2 * groups * kSubsets, red = 2 * rows * c;
   const size_t smem = (fin > red ? fin : red) * sizeof(float);
-  gn_stats_kernel<T, NV><<<grid, block, smem, stream>>>(
+  if (mode == 1) {
+    gn_stats_kernel<T, NV, true><<<grid, block, smem, stream>>>(
+        static_cast<const T*>(x), part, out, tickets, hw, c, groups, chunk, eps);
+    return (int)cudaGetLastError();
+  }
+  float* stats = work + 2 * (size_t)b * nchunks * groups;
+  gn_stats_kernel<T, NV, false><<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), part, stats, tickets, hw, c, groups, chunk, eps);
-  gn_apply_kernel<T, NV><<<grid, block, 0, stream>>>(
+  gn_apply_kernel<T, NV, false><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), stats, scale, bias, hw, c,
-      groups, chunk);
+      groups, chunk, 0.f, eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_nv(int nvec, const void* x, void* y, const float* scale,
-              const float* bias, float* work, int* tickets, int b, int hw,
-              int c, int groups, float eps, int rows, int chunk,
-              cudaStream_t stream) {
+int launch_nv(int nvec, int mode, const void* x, void* y, float* out,
+              const float* scale, const float* bias, float* work, int* tickets,
+              int b, int hw, int c, int groups, float n, float eps, int rows,
+              int chunk, cudaStream_t stream) {
   if (nvec == 1)
-    return launch<T, 1>(x, y, scale, bias, work, tickets, b, hw, c, groups,
-                        eps, rows, chunk, stream);
+    return launch<T, 1>(mode, x, y, out, scale, bias, work, tickets, b, hw, c,
+                        groups, n, eps, rows, chunk, stream);
   if (nvec == 2)
-    return launch<T, 2>(x, y, scale, bias, work, tickets, b, hw, c, groups,
-                        eps, rows, chunk, stream);
+    return launch<T, 2>(mode, x, y, out, scale, bias, work, tickets, b, hw, c,
+                        groups, n, eps, rows, chunk, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(int is_bf16, int nvec, int mode, const void* x, void* y,
+             float* out, const float* scale, const float* bias, float* work,
+             int* tickets, int b, int hw, int c, int groups, float n, float eps,
+             int rows, int chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_nv<__nv_bfloat16>(nvec, mode, x, y, out, scale, bias, work,
+                                    tickets, b, hw, c, groups, n, eps, rows,
+                                    chunk, s);
+  return launch_nv<float>(nvec, mode, x, y, out, scale, bias, work, tickets, b,
+                          hw, c, groups, n, eps, rows, chunk, s);
 }
 
 }  // namespace
@@ -311,10 +372,31 @@ extern "C" int loco_group_norm(const void* x, void* y, const float* scale,
                                int b, int hw, int c, int groups, float eps,
                                int nvec, int rows, int chunk, int is_bf16,
                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_nv<__nv_bfloat16>(nvec, x, y, scale, bias, work, tickets, b,
-                                    hw, c, groups, eps, rows, chunk, s);
-  return launch_nv<float>(nvec, x, y, scale, bias, work, tickets, b, hw, c,
-                          groups, eps, rows, chunk, s);
+  return dispatch(is_bf16, nvec, 0, x, y, nullptr, scale, bias, work, tickets,
+                  b, hw, c, groups, 0.f, eps, rows, chunk, stream);
+}
+
+// Launch 1 alone. sums: (2, B, G) f32 out, the group sums then the sums of
+// squares of x over its hw pixels, reduced in the fused entry's order. x,
+// work, tickets and the geometry as for loco_group_norm.
+extern "C" int loco_group_norm_sums(const void* x, float* sums, float* work,
+                                    int* tickets, int b, int hw, int c,
+                                    int groups, int nvec, int rows, int chunk,
+                                    int is_bf16, void* stream) {
+  return dispatch(is_bf16, nvec, 1, x, nullptr, sums, nullptr, nullptr, work,
+                  tickets, b, hw, c, groups, 0.f, 0.f, rows, chunk, stream);
+}
+
+// Launch 2 alone. sums: (2, B, G) f32 in, as loco_group_norm_sums writes
+// them, covering n elements a group (after an all-reduce across ranks, n
+// counts every rank's pixels). x, y, scale, bias and the geometry as for
+// loco_group_norm.
+extern "C" int loco_group_norm_apply(const void* x, void* y, const float* sums,
+                                     const float* scale, const float* bias,
+                                     int b, int hw, int c, int groups, float n,
+                                     float eps, int nvec, int rows, int chunk,
+                                     int is_bf16, void* stream) {
+  return dispatch(is_bf16, nvec, 2, x, y, const_cast<float*>(sums), scale,
+                  bias, nullptr, nullptr, b, hw, c, groups, n, eps, rows, chunk,
+                  stream);
 }

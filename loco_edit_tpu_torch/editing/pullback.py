@@ -15,6 +15,12 @@ How the JAX package's transforms map onto torch.func:
   - The cotangent sweep takes `vjp(f, x)` once per basis and then
     `vmap(vjp_fn)(U)` each sweep, the counterpart of `jax.linear_transpose`.
   - Probes are not padded (the JAX package pads to 8 only on the TPU).
+  - Probe sharding (`probe_mesh`, --mesh_probe): the JAX package pins the
+    probe axis to a mesh and XLA splits the batched sweeps. Here each rank
+    runs its equal share of the R (fused: 2R) probe JVPs and VJPs, the
+    cotangent images are all-gathered after each sweep (an uneven split pads
+    only the transport buffer, and its rows are dropped), and every rank does
+    the same Gram eigh on the same bits, so every rank holds the basis.
   - The convergence early exit is a host loop that reads the movement of the
     iterate once min_iter sweeps have run.
 """
@@ -22,9 +28,12 @@ How the JAX package's transforms map onto torch.func:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
+
+from loco_edit_tpu_torch.parallel.collectives import gather_stack
 
 
 @dataclasses.dataclass
@@ -44,10 +53,38 @@ class EditBasis:
     iters: int
 
 
-def padded_probe_count(rank: int, d_in: int | None = None) -> int:
-    """Probe-batch size an extraction executes for `rank`: no padding on the
-    card, capped at the space dimension."""
-    return rank if d_in is None else min(rank, d_in)
+def padded_probe_count(rank: int, d_in: int | None = None,
+                       mesh_size: int | None = None,
+                       pad_probes: bool = False) -> int:
+    """Probe-batch size an extraction executes for `rank`, capped at the
+    space dimension. The JAX package pads up to the 8-sublane tile (lcm
+    with the mesh size when probe-sharded) on the TPU only; the port never
+    runs there, so pad_probes defaults to False and the count is `rank`."""
+    r_eff = rank
+    if pad_probes:
+        mult = 8 if mesh_size is None else math.lcm(8, mesh_size)
+        r_eff = -(-rank // mult) * mult
+    return r_eff if d_in is None else min(r_eff, d_in)
+
+
+def _probe_share(n: int, probe_mesh) -> tuple[int, int, int]:
+    """(lo, hi, per): this rank's rows [lo, hi) of n probes split over the
+    probe mesh in equal shares of per rows (the last shares may be short or
+    empty)."""
+    per = -(-n // probe_mesh.size)
+    lo = min(n, probe_mesh.coordinate(probe_mesh.axis_names[0]) * per)
+    return lo, min(n, lo + per), per
+
+
+def _gather_rows(local: torch.Tensor | None, n: int, per: int,
+                 row_like: torch.Tensor, probe_mesh) -> torch.Tensor:
+    """Every rank's share of n rows (local: this rank's, None when empty),
+    padded to per rows for transport, gathered and cut back to n."""
+    buf = row_like.new_zeros((per,) + tuple(row_like.shape))
+    if local is not None:
+        buf[:local.shape[0]] = local
+    group = probe_mesh.group(probe_mesh.axis_names[0])
+    return gather_stack(buf, group).reshape((-1,) + tuple(row_like.shape))[:n]
 
 
 def init_probes(rng, rank: int, d_in: int, device) -> torch.Tensor:
@@ -103,13 +140,16 @@ def subspace_iteration(
     tol: float = 1e-4,
     probe_chunk: int | None = None,
     v_init: torch.Tensor | None = None,
+    probe_mesh=None,
 ) -> EditBasis:
     """Estimate the top-`rank` right-singular subspace of d f / d x at x.
 
     mask: optional 0/1 (or soft) weight broadcastable to f(x). probe_chunk:
     evaluate probes in chunks of this size to bound memory. v_init: explicit
     (rank, d_in) orthonormal starting probes (rows) instead of a draw from
-    `rng`, for warm starts and matched-probe comparisons.
+    `rng`, for warm starts and matched-probe comparisons. probe_mesh: a
+    one-axis core/mesh.py Mesh the probes are split over (every rank calls
+    with the same arguments and gets the same basis).
     """
     d_in = x.numel()
     in_shape = x.shape
@@ -119,7 +159,10 @@ def subspace_iteration(
         y = f(z)
         return y if mask is None else y * mask.to(y.dtype)
 
-    _, vjp_fn = torch.func.vjp(fw, x)
+    y0, vjp_fn = torch.func.vjp(fw, x)
+    vrow = x.new_zeros((d_in,), dtype=torch.float32)
+    if probe_mesh is not None:
+        lo, hi, per = _probe_share(r_eff, probe_mesh)
 
     def one_u(vi):
         return torch.func.jvp(fw, (x,), (vi.reshape(in_shape).to(x.dtype),))[1]
@@ -135,11 +178,18 @@ def subspace_iteration(
         v = init_probes(rng, r_eff, d_in, x.device)
     i, conv, u, s_vp = 0, float("inf"), None, None
     while _keep_going(i, conv, min_iter, max_iter, tol):
-        u = _map_chunks(one_u, (v,), probe_chunk)      # u = J v
-        vp = _map_chunks(one_v, (u,), probe_chunk)     # vp = u^T J
+        if probe_mesh is None:
+            u = _map_chunks(one_u, (v,), probe_chunk)      # u = J v
+            vp = _map_chunks(one_v, (u,), probe_chunk)     # vp = u^T J
+        else:                                              # this rank's share
+            u = _map_chunks(one_u, (v[lo:hi],), probe_chunk) if hi > lo else None
+            vp_loc = _map_chunks(one_v, (u,), probe_chunk) if hi > lo else None
+            vp = _gather_rows(vp_loc, r_eff, per, vrow, probe_mesh)
         v_new, s_vp = _gram_update(vp, v)
         conv = (v_new[:rank] - v[:rank]).abs().max()
         v, i = v_new, i + 1
+    if probe_mesh is not None:
+        u = _gather_rows(u, r_eff, per, y0, probe_mesh)
     return EditBasis(u=u[:rank], s=torch.sqrt(s_vp[:rank]), vT=v[:rank],
                      iters=i)
 
@@ -159,6 +209,7 @@ def dual_subspace_iteration(
     tol: float = 1e-4,
     probe_chunk: int | None = None,
     v_init: torch.Tensor | None = None,
+    probe_mesh=None,
 ) -> tuple[EditBasis, EditBasis]:
     """Two mask-weighted subspace iterations on the SAME Jacobian, fused.
 
@@ -168,7 +219,8 @@ def dual_subspace_iteration(
     v'_i = J^T (m_g * u_i), exactly what `subspace_iteration(mask=m_g)`
     computes. The Gram / eigh / convergence steps are blockwise per group;
     the loop exits when both groups converge. v_init: explicit (2, R, d_in)
-    starting probes instead of draws from rng_a / rng_b.
+    starting probes instead of draws from rng_a / rng_b. probe_mesh: the
+    2R probes split over a one-axis mesh, as in subspace_iteration.
     Returns (basis_a, basis_b).
     """
     d_in = x.numel()
@@ -197,13 +249,26 @@ def dual_subspace_iteration(
                          init_probes(rng_b, R, d_in, x.device)])
     row_w = torch.stack([(torch.arange(R) < rank_a), (torch.arange(R) < rank_b)]
                         ).float().to(x.device)
+    if probe_mesh is not None:
+        lo, hi, per = _probe_share(2 * R, probe_mesh)
+        vrow = x.new_zeros((d_in,), dtype=torch.float32)
     i, conv, u, s_vp = 0, float("inf"), None, None
     while _keep_going(i, conv, min_iter, max_iter, tol):
-        u = _map_chunks(one_u, (v.reshape(2 * R, d_in), m_flat), probe_chunk)
-        vp = _map_chunks(one_v, (u, m_flat), probe_chunk).reshape(2, R, d_in)
-        v_new, s_vp = _gram_update(vp, v)
+        v_flat = v.reshape(2 * R, d_in)
+        if probe_mesh is None:
+            u = _map_chunks(one_u, (v_flat, m_flat), probe_chunk)
+            vp = _map_chunks(one_v, (u, m_flat), probe_chunk)
+        else:                                              # this rank's share
+            u = (_map_chunks(one_u, (v_flat[lo:hi], m_flat[lo:hi]), probe_chunk)
+                 if hi > lo else None)
+            vp_loc = (_map_chunks(one_v, (u, m_flat[lo:hi]), probe_chunk)
+                      if hi > lo else None)
+            vp = _gather_rows(vp_loc, 2 * R, per, vrow, probe_mesh)
+        v_new, s_vp = _gram_update(vp.reshape(2, R, d_in), v)
         conv = ((v_new - v).abs() * row_w[..., None]).max()
         v, i = v_new, i + 1
+    if probe_mesh is not None:
+        u = _gather_rows(u, 2 * R, per, y0, probe_mesh)
     u = u.reshape(2, R, *out_shape)
 
     def basis(g, rank):

@@ -1,8 +1,9 @@
 """Native (C++) host-side image pipeline with ctypes bindings (port of
 loco_edit_tpu/native/__init__.py, with its own copy of imagepipe.cpp).
 
-Built by g++ at first use into loco_edit_tpu_torch/_build/ (named by a hash
-of the source, so an edited source is rebuilt), not beside the source.
+Built by g++ at first use into the build directory (core/cache.py::build_dir,
+by default loco_edit_tpu_torch/_build/ in a checkout; named by a hash of the
+source, so an edited source is rebuilt), not beside the source.
 training/data.py decodes with PIL when the library cannot build (no
 toolchain or codecs). See imagepipe.cpp for what it implements.
 """
@@ -16,9 +17,10 @@ import subprocess
 
 import numpy as np
 
+from loco_edit_tpu_torch.core.cache import build_dir
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "imagepipe.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 
 _lib = None
 _build_error: str | None = None
@@ -27,13 +29,12 @@ _build_error: str | None = None
 def _so_path() -> str:
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libimagepipe-{digest}.so")
+    return os.path.join(build_dir(), f"libimagepipe-{digest}.so")
 
 
 def _build(so: str) -> str | None:
     if os.path.exists(so):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC,
            "-o", tmp, "-ljpeg", "-lpng", "-lpthread"]

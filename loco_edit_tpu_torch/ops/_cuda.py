@@ -3,8 +3,9 @@
 The kernels have plain C entry points and are bound with ctypes: no PyTorch
 headers are compiled, so a build takes seconds. Each source is compiled to an
 object file by its own `nvcc` process, all started together, and the objects
-are linked into one `.so` under `loco_edit_tpu_torch/_build/`, named by a hash
-of the sources so that an edited source is rebuilt. Nothing is built when the
+are linked into one `.so` in the build directory (core/cache.py::build_dir,
+by default `loco_edit_tpu_torch/_build/` in a checkout), named by a hash of
+the sources so that an edited source is rebuilt. Nothing is built when the
 package is imported: the first launch builds, or a caller does so up front
 with `load_library()`.
 """
@@ -20,9 +21,10 @@ import threading
 
 import torch
 
+from loco_edit_tpu_torch.core.cache import build_dir
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +39,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "loco_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                         _I, _P],
+    "loco_group_norm_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "loco_group_norm_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
+                              _I, _I, _P],
     "loco_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 12
                             + [_F, _I, _P],
 }
@@ -80,7 +85,7 @@ def _build(so_path: str) -> None:
     nvcc = _nvcc()
     cu = [s for s in _sources() if s.endswith(".cu")]
     tag = os.path.basename(so_path)[:-3]
-    objs = [os.path.join(BUILD_DIR, f"{tag}-{os.getpid()}-{os.path.basename(s)[:-3]}.o")
+    objs = [os.path.join(os.path.dirname(so_path), f"{tag}-{os.getpid()}-{os.path.basename(s)[:-3]}.o")
             for s in cu]
     log = _run_all([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
                     for s, o in zip(cu, objs)])
@@ -106,8 +111,7 @@ def load_library() -> ctypes.CDLL:
             with open(s, "rb") as f:
                 h.update(os.path.basename(s).encode() + f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so_path = os.path.join(BUILD_DIR, f"libloco_kernels-{h.hexdigest()[:12]}.so")
+        so_path = os.path.join(build_dir(), f"libloco_kernels-{h.hexdigest()[:12]}.so")
         if not os.path.exists(so_path):
             _build(so_path)
         lib = ctypes.CDLL(so_path)

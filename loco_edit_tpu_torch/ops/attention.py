@@ -10,9 +10,17 @@ from __future__ import annotations
 import torch
 
 from loco_edit_tpu_torch.ops.flash_attention import AttentionFn
+from loco_edit_tpu_torch.parallel.collectives import all_gather
+from loco_edit_tpu_torch.parallel.sp import active_sp_group
 
 
 def sdp_attention(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
-    """q, k, v: (B, H, N, D). Returns (B, H, N, D) in q.dtype."""
+    """q, k, v: (B, H, N, D). Returns (B, H, N, D) in q.dtype. Under
+    spatial parallelism (parallel/sp.py) the tokens are this rank's band:
+    keys and values are gathered from every rank, so each query attends to
+    the whole image (the kernel takes N_q != N_kv)."""
+    group = active_sp_group()
+    if group is not None:
+        k, v = all_gather(k, 2, group), all_gather(v, 2, group)
     return AttentionFn.apply(q, k, v)

@@ -2,7 +2,9 @@
 
 The ADM family normalizes in float32 whatever the compute dtype (32 groups,
 eps 1e-5). The work is done by ops/groupnorm.py: the plain version on the
-CPU, the CUDA kernel on the card, with hand-written differentiation rules.
+CPU, the CUDA kernel on the card, with hand-written differentiation rules;
+under spatial parallelism the kernel's statistics and normalize passes run
+as separate launches with an all-reduce between them.
 """
 
 from __future__ import annotations
@@ -10,10 +12,13 @@ from __future__ import annotations
 import torch
 
 from loco_edit_tpu_torch.ops.groupnorm import GroupNormFn
+from loco_edit_tpu_torch.parallel.sp import active_sp_group
 
 
 def group_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over the channel axis (dim 1) of a (B, C, H, W) tensor,
-    computed in float32 and returned in x.dtype."""
-    return GroupNormFn.apply(x, scale, bias, num_groups, eps)
+    computed in float32 and returned in x.dtype. Under spatial parallelism
+    (parallel/sp.py) x is this rank's band of rows and the statistics are
+    the whole image's."""
+    return GroupNormFn.apply(x, scale, bias, num_groups, eps, active_sp_group())

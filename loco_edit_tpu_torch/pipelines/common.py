@@ -1,5 +1,4 @@
-"""Shared engine execution machinery (port of loco_edit_tpu/pipelines/common.py,
-without the device mesh).
+"""Shared engine execution machinery (port of loco_edit_tpu/pipelines/common.py).
 
   - Overlapped artifact IO: disk artifacts (.npz direction caches, PNG
     strips) are written on one IO thread so they overlap device work; they
@@ -11,6 +10,10 @@ without the device mesh).
     synchronize.
   - Walk strips of every principal component concatenated into one frame
     batch, and split back.
+  - Mesh axes over torch.distributed ranks (core/mesh.py): --mesh_probe
+    splits the subspace iteration's probes (editing/pullback.py),
+    --mesh_data the walk-strip frames and the batch-edit samples. Every
+    rank runs the same program; rank 0 writes the artifacts.
 """
 
 from __future__ import annotations
@@ -22,15 +25,23 @@ from typing import Callable
 import numpy as np
 import torch
 
+from loco_edit_tpu_torch.core.mesh import (DATA_AXIS, PROBE_AXIS, is_main_process,
+                                           make_mesh, world_size)
+from loco_edit_tpu_torch.core.rng import draw_rows
+from loco_edit_tpu_torch.parallel.collectives import gather_cat
 from loco_edit_tpu_torch.utils.chunk import map_chunked
 
 
 class EngineExec:
-    """Mixin for edit pipelines: overlapped artifact IO and chunked batch
-    execution. Expects `self.cfg` with an optional `memory_bound` field.
+    """Mixin for edit pipelines: overlapped artifact IO, mesh sharding
+    (probe / data axes) and chunked batch execution. Expects `self.cfg`
+    with optional `memory_bound`, `mesh_probe` and `mesh_data` fields;
+    every helper is a one-rank no-op when a field is absent or at most 1.
     State is created lazily so engines need no __init__ cooperation."""
 
     def _submit_io(self, fn, *args, **kw):
+        if not is_main_process():
+            return     # rank 0 writes the artifacts
         if getattr(self, "_io_pool", None) is None:
             self._io_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="loco-io")
@@ -38,19 +49,72 @@ class EngineExec:
         self._io_pending.append(self._io_pool.submit(fn, *args, **kw))
 
     def flush_io(self):
-        """Wait for every queued artifact write (re-raising any error)."""
+        """Wait for every queued artifact write (re-raising any error). With
+        more than one rank, every rank waits until rank 0's writes are on
+        disk, so that the ranks' cache-existence checks agree."""
         pending = getattr(self, "_io_pending", None)
-        if not pending:
-            return
-        self._io_pending = []
-        for f in pending:
-            f.result()
+        if pending:
+            self._io_pending = []
+            for f in pending:
+                f.result()
+        if world_size() > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
+
+    def _mesh(self, field: str, axis: str):
+        n = getattr(self.cfg, field, 0)
+        if n <= 1:
+            return None
+        meshes = self.__dict__.setdefault("_meshes", {})
+        if field not in meshes:   # make_mesh raises unless n is the world size
+            meshes[field] = make_mesh({axis: n})
+        return meshes[field]
+
+    def _probe_sharding(self):
+        """The probe-axis mesh when cfg.mesh_probe > 1 (solo AND fused
+        extraction split their probes over it), else None."""
+        return self._mesh("mesh_probe", PROBE_AXIS)
+
+    def _data_sharding(self):
+        """The data-axis mesh when cfg.mesh_data > 1 (the walk-strip /
+        batch-edit axis), else None."""
+        return self._mesh("mesh_data", DATA_AXIS)
+
+    def _split_over_data(self, fn, x: torch.Tensor, mesh) -> torch.Tensor:
+        """fn over x's leading axis padded to the mesh and split into equal
+        shares, one a rank, the results all-gathered (the same on every
+        rank) and the padding dropped. Random draws inside fn whose leading
+        axis is the share are drawn for the whole padded batch and sliced
+        (core/rng.py::draw_rows), so the result equals the unsharded run of
+        the padded batch."""
+        b = x.shape[0]
+        pad = (-b) % mesh.size
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        per = x.shape[0] // mesh.size
+        lo = mesh.coordinate(DATA_AXIS) * per
+        with draw_rows(lo, per, x.shape[0]):
+            out = fn(x[lo:lo + per])
+        out = gather_cat(out, 0, mesh.group(DATA_AXIS))
+        return out[:b] if pad else out
 
     def run_batched(self, fn: Callable[[torch.Tensor], torch.Tensor],
                     x: torch.Tensor) -> torch.Tensor:
-        """Apply a batch-preserving fn over x's leading axis, in chunks of
-        cfg.memory_bound (fn is called once per chunk)."""
+        """Apply a batch-preserving fn over x's leading axis: split over the
+        data mesh when cfg.mesh_data > 1, else in chunks of cfg.memory_bound
+        (fn is called once per chunk)."""
+        mesh = self._data_sharding()
+        if mesh is not None:
+            return self._split_over_data(fn, x, mesh)
         return map_chunked(fn, x, getattr(self.cfg, "memory_bound", 0))
+
+    def shard_samples(self, fn: Callable[[torch.Tensor], torch.Tensor],
+                      x: torch.Tensor) -> torch.Tensor:
+        """--mesh_data for a batch-edit sample axis: fn(x) split over the
+        data mesh (padded to it), or fn(x) in one call without one."""
+        mesh = self._data_sharding()
+        return fn(x) if mesh is None else self._split_over_data(fn, x, mesh)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

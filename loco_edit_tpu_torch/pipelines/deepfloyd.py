@@ -1,5 +1,5 @@
 """T-LOCO on DeepFloyd-IF: the pixel-space cascade edit engine (port of
-loco_edit_tpu/pipelines/deepfloyd.py, single device).
+loco_edit_tpu/pipelines/deepfloyd.py).
 
 Stage-1 64 px pixel-space editing with the 8-mode CFG combiner on the eps
 half of the learned-sigma output, the squaredcos_cap_v2 linspace DDIM grid
@@ -14,7 +14,8 @@ package's stream names ("xT", "if-probes-{rank}", "diffedit"), so a test can
 hand the pipeline a stream that yields the JAX package's draws. With
 `cfg.pixel_output` the stage-1 strip (pixel space already) is converted to
 uint8 on the device before the copy to the host; the stage-2 upscaler reads
-the float strip. The mesh knobs are not ported (ROADMAP.md Queue A item 15).
+the float strip. The mesh knobs
+(--mesh_probe, --mesh_data) come from EngineExec (pipelines/common.py).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from loco_edit_tpu_torch.core.device import resolve_device
+from loco_edit_tpu_torch.core.mesh import is_main_process
 from loco_edit_tpu_torch.core.rng import RngStream
 from loco_edit_tpu_torch.diffusion import LinspaceDDIM, ddim_generate, ddim_step
 from loco_edit_tpu_torch.editing import (
@@ -70,6 +72,8 @@ class IFEditConfig:
     max_iter: int = 50
     convergence_threshold: float = 1e-3
     probe_chunk: int | None = None
+    mesh_probe: int = 0          # split the probes over this many ranks (0 = off)
+    mesh_data: int = 0           # split strip frames / batch samples over ranks (0 = off)
     memory_bound: int = 0        # chunk strip denoise batches (0 = off)
     # return the stage-1 strip as uint8 pixels, converted on the device
     pixel_output: bool = False
@@ -216,7 +220,8 @@ class IFEditPipeline(EngineExec):
             self.pmp_fn(prompts, mode), self._tensor(xt),
             self.rng.fork(f"if-probes-{rank}"), rank=rank, mask=m,
             min_iter=cfg.min_iter, max_iter=cfg.max_iter,
-            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk)
+            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk,
+            probe_mesh=self._probe_sharding())
 
     def extract_dual_basis(self, xt, prompts: dict, mode: str, mask, rank: int,
                            rank_null: int):
@@ -229,7 +234,8 @@ class IFEditPipeline(EngineExec):
             self.rng.fork(f"if-probes-{rank}"), self.rng.fork(f"if-probes-{rank_null}"),
             rank_a=rank, rank_b=rank_null, mask_a=mw, mask_b=(mw == 0).float(),
             min_iter=cfg.min_iter, max_iter=cfg.max_iter,
-            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk)
+            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk,
+            probe_mesh=self._probe_sharding())
 
     def diffedit_mask(self, x0, prompts: dict) -> np.ndarray:
         """The DiffEdit mask of x0 between the for- and edit-guided eps,
@@ -276,7 +282,7 @@ class IFEditPipeline(EngineExec):
                     x0 = self.masked_forward_steps(xt, prompts, mask,
                                                    self.edit_t_idx, None)
                 img = _host(x0)
-            if cfg.save_images:
+            if cfg.save_images and is_main_process():
                 save_image_grid(img, os.path.join(out_dir, f"{ablation}.png"))
             return {"image": img}
 
@@ -332,8 +338,8 @@ class IFEditPipeline(EngineExec):
         vT_null_pre = None
         use_dual = (not semantic and not cached and cfg.null_space_projection
                     and mask is not None
-                    and padded_probe_count(cfg.pca_rank)
-                    == padded_probe_count(cfg.pca_rank_null))
+                    and padded_probe_count(cfg.pca_rank, mesh_size=cfg.mesh_probe or None)
+                    == padded_probe_count(cfg.pca_rank_null, mesh_size=cfg.mesh_probe or None))
 
         if cached:
             vT_modify = self._tensor(load_directions(modify_path)[0])

@@ -1,5 +1,5 @@
 """T-LOCO on a Latent Consistency Model: few-step z-space editing (port of
-loco_edit_tpu/pipelines/lcm.py, single device).
+loco_edit_tpu/pipelines/lcm.py).
 
 4-step LCM sampling with the guidance-scale embedding (w = guidance_scale -
 1, no CFG batch), the edit at an integer step index (default 2),
@@ -15,8 +15,8 @@ package's stream names ("zT", "lcm-noise", "lcm-probes-{rank}"), so a test
 can hand the pipeline a stream that yields the JAX package's draws; the
 `noise_fn` hook overrides the inter-step noise alone. With
 `cfg.pixel_output` the decoded strip is converted to uint8 pixels on the
-device before the copy to the host. The mesh knobs are not ported (ROADMAP.md
-Queue A item 15).
+device before the copy to the host. The mesh knobs
+(--mesh_probe, --mesh_data) come from EngineExec (pipelines/common.py).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from loco_edit_tpu_torch.core.device import resolve_device
+from loco_edit_tpu_torch.core.mesh import is_main_process
 from loco_edit_tpu_torch.core.rng import RngStream
 from loco_edit_tpu_torch.diffusion.lcm import LCMGrid, lcm_denoised, lcm_grid, lcm_scan
 from loco_edit_tpu_torch.editing import (
@@ -63,6 +64,8 @@ class LCMEditConfig:
     max_iter: int = 50
     convergence_threshold: float = 1e-3
     probe_chunk: int | None = None
+    mesh_probe: int = 0          # split the probes over this many ranks (0 = off)
+    mesh_data: int = 0           # split strip frames / batch samples over ranks (0 = off)
     scaling_factor: float = 0.18215
     memory_bound: int = 0        # chunk strip denoise batches (0 = off)
     # return the edited strip as uint8 pixels, converted on the device
@@ -166,7 +169,8 @@ class LCMEditPipeline(EngineExec):
             self.rng.fork(f"lcm-probes-{rank}"), rank=rank, mask=m,
             min_iter=cfg.min_iter, max_iter=cfg.max_iter,
             tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk,
-            v_init=v_init)
+            v_init=v_init,
+            probe_mesh=None if v_init is not None else self._probe_sharding())
 
     def extract_dual_basis(self, zt, prompt: str, mask, rank: int, rank_null: int):
         """Mask + complement-mask bases of the same consistency-through-
@@ -180,7 +184,8 @@ class LCMEditPipeline(EngineExec):
             self.rng.fork(f"lcm-probes-{rank_null}"),
             rank_a=rank, rank_b=rank_null, mask_a=mw, mask_b=(mw == 0).float(),
             min_iter=cfg.min_iter, max_iter=cfg.max_iter,
-            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk)
+            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk,
+            probe_mesh=self._probe_sharding())
 
     def delta_zt_via_grad(self, zt, for_prompt: str, edit_prompt: str,
                           mask) -> torch.Tensor:
@@ -213,8 +218,8 @@ class LCMEditPipeline(EngineExec):
         fuses into one dual iteration when their probe counts agree."""
         cfg = self.cfg
         use_dual = (cfg.non_semantic and cfg.null_space_projection and mask is not None
-                    and padded_probe_count(cfg.pca_rank)
-                    == padded_probe_count(cfg.pca_rank_null))
+                    and padded_probe_count(cfg.pca_rank, mesh_size=cfg.mesh_probe or None)
+                    == padded_probe_count(cfg.pca_rank_null, mesh_size=cfg.mesh_probe or None))
         vT_null_pre = None
         if use_dual:
             t0 = time.time()
@@ -283,7 +288,7 @@ class LCMEditPipeline(EngineExec):
             with _Phase(self.timings, "strips", self.device):
                 _, den = self.forward_steps(zt, edit_prompt, cfg.edit_t_idx, None)
                 img = self.decode_to_image(den)
-            if cfg.save_images:
+            if cfg.save_images and is_main_process():
                 save_image_grid(img, os.path.join(out_dir, "sega.png"))
             return {"image": img}
 
@@ -309,7 +314,8 @@ class LCMEditPipeline(EngineExec):
         self.timings = {}
         n = zTs.shape[0]
         with _Phase(self.timings, "generate", self.device):
-            zts, _ = self.forward_steps(zTs, for_prompt, 0, cfg.edit_t_idx)
+            zts = self.shard_samples(lambda z: self.forward_steps(
+                z, for_prompt, 0, cfg.edit_t_idx)[0], self._tensor(zTs))
         names = sample_names or [f"batch{i:03d}" for i in range(n)]
         results = []
         for i in range(n):

@@ -1,5 +1,5 @@
 """T-LOCO on Stable Diffusion: the latent z-space edit engine (port of
-loco_edit_tpu/pipelines/sd.py, single device).
+loco_edit_tpu/pipelines/sd.py).
 
 CFG denoising with the prompt-combination modes (editing/cfg.py), DDIM
 inversion of a real image through the VAE encoder, the PMP decoded through
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from loco_edit_tpu_torch.core.device import resolve_device
+from loco_edit_tpu_torch.core.mesh import is_main_process
 from loco_edit_tpu_torch.core.rng import RngStream
 from loco_edit_tpu_torch.diffusion import LinspaceDDIM, ddim_generate, ddim_invert
 from loco_edit_tpu_torch.editing import (
@@ -67,6 +68,8 @@ class SDEditConfig:
     max_iter: int = 50
     convergence_threshold: float = 1e-3
     probe_chunk: int | None = None
+    mesh_probe: int = 0          # split the probes over this many ranks (0 = off)
+    mesh_data: int = 0           # split strip frames / batch samples over ranks (0 = off)
     scaling_factor: float = 0.18215
     t_max: int = 999
     memory_bound: int = 0        # chunk strip denoise / decode batches (0 = off)
@@ -193,7 +196,8 @@ class SDEditPipeline(EngineExec):
             self.pmp_through_decoder(prompts, mode), self._tensor(zt),
             self.rng.fork(f"probes-{rank}-{mode}"), rank=rank, mask=m,
             min_iter=cfg.min_iter, max_iter=cfg.max_iter,
-            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk)
+            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk,
+            probe_mesh=self._probe_sharding())
 
     def extract_dual_basis(self, zt, prompts: dict, mode: str, mask,
                            rank: int, rank_null: int):
@@ -208,7 +212,8 @@ class SDEditPipeline(EngineExec):
             self.rng.fork(f"probes-{rank_null}-{mode}"),
             rank_a=rank, rank_b=rank_null, mask_a=mw, mask_b=(mw == 0).float(),
             min_iter=cfg.min_iter, max_iter=cfg.max_iter,
-            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk)
+            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk,
+            probe_mesh=self._probe_sharding())
 
     def delta_zt_via_grad(self, zt, prompts: dict, mask, mode: str) -> torch.Tensor:
         """Text-supervised direction: the gradient of <delta_x0,
@@ -257,8 +262,8 @@ class SDEditPipeline(EngineExec):
         vT_null_pre = None
         use_dual = (not semantic and not cached and cfg.null_space_projection
                     and mask is not None
-                    and padded_probe_count(cfg.pca_rank)
-                    == padded_probe_count(cfg.pca_rank_null))
+                    and padded_probe_count(cfg.pca_rank, mesh_size=cfg.mesh_probe or None)
+                    == padded_probe_count(cfg.pca_rank_null, mesh_size=cfg.mesh_probe or None))
 
         if cached:
             vT_modify = self._tensor(load_directions(modify_path)[0])
@@ -349,7 +354,7 @@ class SDEditPipeline(EngineExec):
                 z0 = self.generate(zt, prompts, "null+(for-null)+(edit-null)",
                                    self.edit_t_idx, None)
                 img = self.decode_to_image(z0)
-            if cfg.save_images:
+            if cfg.save_images and is_main_process():
                 save_image_grid(img, os.path.join(out_dir, "sega.png"))
             return {"image": img}
 
@@ -380,9 +385,11 @@ class SDEditPipeline(EngineExec):
         n = (zTs if x0s is None else x0s).shape[0]
         names = sample_names or [f"batch{i:03d}" for i in range(n)]
         with _Phase(self.timings, "invert", self.device):
-            zTs = self.invert(x0s) if x0s is not None else self._tensor(zTs)
+            zTs = (self.shard_samples(self.invert, self._tensor(x0s)) if x0s is not None
+                   else self._tensor(zTs))
         with _Phase(self.timings, "generate", self.device):
-            zts = self.generate(zTs, prompts, "null+(for-null)", 0, self.edit_t_idx)
+            zts = self.shard_samples(lambda z: self.generate(
+                z, prompts, "null+(for-null)", 0, self.edit_t_idx), zTs)
         results = []
         for i in range(n):
             out_dir = os.path.join(cfg.result_folder, names[i])

@@ -1,5 +1,5 @@
 """LOCO-Edit proper: the unconditional-DDPM edit engine (port of
-loco_edit_tpu/pipelines/uncond.py, single device).
+loco_edit_tpu/pipelines/uncond.py).
 
 The flagship path:
 
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from loco_edit_tpu_torch.core.device import resolve_device
+from loco_edit_tpu_torch.core.mesh import is_main_process
 from loco_edit_tpu_torch.core.rng import RngStream
 from loco_edit_tpu_torch.diffusion import LinspaceDDIM, ddim_generate, ddim_invert
 from loco_edit_tpu_torch.editing import (
@@ -66,6 +67,8 @@ class UncondEditConfig:
     max_iter: int = 50
     convergence_threshold: float = 1e-4
     probe_chunk: int | None = None
+    mesh_probe: int = 0          # split the probes over this many ranks (0 = off)
+    mesh_data: int = 0           # split strip frames / batch samples over ranks (0 = off)
     memory_bound: int = 0        # chunk strip denoise batches (0 = no chunking)
     # return edited strips as uint8 pixels, converted on the device
     pixel_output: bool = False
@@ -143,7 +146,8 @@ class UncondEditPipeline(EngineExec):
             self.pullback_fn(), self._tensor(xt),
             self.rng.fork(f"{stream}-r{rank}"), rank=rank, mask=m,
             min_iter=cfg.min_iter, max_iter=cfg.max_iter,
-            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk)
+            tol=cfg.convergence_threshold, probe_chunk=cfg.probe_chunk,
+            probe_mesh=self._probe_sharding())
 
     def extract_dual_basis(self, xt, mask, rank: int, rank_null: int):
         """Mask + complement-mask bases of the SAME Jacobian in one fused
@@ -158,7 +162,8 @@ class UncondEditPipeline(EngineExec):
             rank_a=rank, rank_b=rank_null, mask_a=mw,
             mask_b=(mw == 0).float(), min_iter=cfg.min_iter,
             max_iter=cfg.max_iter, tol=cfg.convergence_threshold,
-            probe_chunk=cfg.probe_chunk)
+            probe_chunk=cfg.probe_chunk,
+            probe_mesh=self._probe_sharding())
 
     # -- the flagship experiment ----------------------------------------------
 
@@ -184,8 +189,8 @@ class UncondEditPipeline(EngineExec):
             cfg.null_space_projection and mask is not None
             and not os.path.exists(mod_path)
             and not os.path.exists(null_path)
-            and padded_probe_count(cfg.pca_rank)
-            == padded_probe_count(cfg.pca_rank_null))
+            and padded_probe_count(cfg.pca_rank, mesh_size=cfg.mesh_probe or None)
+            == padded_probe_count(cfg.pca_rank_null, mesh_size=cfg.mesh_probe or None))
 
         if os.path.exists(mod_path):
             vT_modify = self._tensor(load_directions(mod_path)[0])
@@ -323,9 +328,10 @@ class UncondEditPipeline(EngineExec):
         names = sample_names or [f"batch{i:03d}" for i in range(n)]
         self.timings = {}
         with _Phase(self.timings, "invert", self.device):
-            xTs = self.invert(x0s) if xTs is None else self._tensor(xTs)
+            xTs = (self.shard_samples(self.invert, self._tensor(x0s)) if xTs is None
+                   else self._tensor(xTs))
         with _Phase(self.timings, "generate", self.device):
-            xts = self.generate(xTs, 0, self.edit_t_idx)
+            xts = self.shard_samples(lambda x: self.generate(x, 0, self.edit_t_idx), xTs)
 
         results = []
         for i in range(n):
@@ -365,7 +371,7 @@ class UncondEditPipeline(EngineExec):
             if cfg.pixel_output:
                 edited = to_uint8_pixels_device(edited)
             edited = _host(edited)
-        if cfg.save_images:
+        if cfg.save_images and is_main_process():
             save_image_grid(edited, os.path.join(cfg.result_folder, sample_name,
                                                  "group_edit.png"))
         return edited

@@ -64,6 +64,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import json
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -484,6 +485,8 @@ def main(argv=None):
     import argparse
 
     from loco_edit_tpu_torch.cli.args import check_supported, parse_args, preset
+    from loco_edit_tpu_torch.cli.main import start_ranks
+    from loco_edit_tpu_torch.core.cache import enable_compile_cache
     from loco_edit_tpu_torch.core.device import resolve_device
 
     outer = argparse.ArgumentParser("loco-edit-tpu serve", add_help=False)
@@ -493,6 +496,10 @@ def main(argv=None):
     args = parse_args(rest)
     check_supported(args)
     resolve_device(args.device)      # no card and no --device cpu: raise now
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise ValueError("the edit server runs in one process; start it without torchrun")
+    start_ranks(args, args.device)   # one process: the mesh flags must fit it
+    print(f"kernel build directory: {enable_compile_cache()}", flush=True)
     args = preset(args)
     service = EditService(args)
     # one warm-up edit in this thread builds and loads the kernels before

@@ -74,6 +74,19 @@ def masked_mse(a, b, mask=None, device=None) -> torch.Tensor:
 
 _lpips_cache: dict = {}
 
+# the torchvision checkpoints torchmetrics' LPIPS backbones load
+_TORCHVISION_BACKBONES = {
+    "alex": "alexnet-owt-7be5be79.pth",
+    "vgg": "vgg16-397923af.pth",
+    "squeeze": "squeezenet1_1-b8a52dc0.pth",
+}
+
+
+def _torchvision_backbone_file(net: str) -> str:
+    """Where torch hub keeps the torchvision backbone of `net` locally."""
+    return os.path.join(torch.hub.get_dir(), "checkpoints",
+                        _TORCHVISION_BACKBONES.get(net, f"{net}.pth"))
+
 
 def lpips(a, b, net: str | None = None, weights_path: str | None = None,
           device=None) -> torch.Tensor:
@@ -87,8 +100,10 @@ def lpips(a, b, net: str | None = None, weights_path: str | None = None,
     Weights: the port's LPIPS (utils/lpips.py) from a LOCAL torch
     checkpoint: pass `weights_path` or set LOCO_LPIPS_WEIGHTS to a full
     lpips/torchmetrics state_dict (or "backbone.pth:lins.pth" for the
-    torchvision-features + lpips-heads pair). Falls back to torchmetrics if
-    installed; raises ImportError with guidance otherwise."""
+    torchvision-features + lpips-heads pair). Falls back to torchmetrics
+    only when its backbone's torchvision weights are already in the local
+    torch hub cache (torchmetrics would download them otherwise); raises
+    with guidance when neither is there. Nothing here reaches the network."""
     weights_path = weights_path or os.environ.get("LOCO_LPIPS_WEIGHTS")
     ta = _as_tensor(a, device)
     tb = _as_tensor(b, ta.device)
@@ -122,6 +137,14 @@ def lpips(a, b, net: str | None = None, weights_path: str | None = None,
             "LPIPS needs either a local weights file (set LOCO_LPIPS_WEIGHTS "
             "or pass weights_path; see utils/lpips.py) or torchmetrics "
             "with pretrained weights; or use ssim/masked_mse") from e
+    cached = _torchvision_backbone_file(net or "alex")
+    if not os.path.exists(cached):
+        raise FileNotFoundError(
+            f"LPIPS: no local weights. torchmetrics' {net or 'alex'} LPIPS needs "
+            f"its torchvision backbone at {cached} (the torch hub cache), and "
+            "this package never downloads it: copy the file there, or set "
+            "LOCO_LPIPS_WEIGHTS / pass weights_path (see utils/lpips.py); or "
+            "use ssim/masked_mse")
     metric = LearnedPerceptualImagePatchSimilarity(
         net_type=net or "alex", normalize=True).to(ta.device)
     ta, tb = ta.permute(0, 3, 1, 2), tb.permute(0, 3, 1, 2)

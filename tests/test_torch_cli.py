@@ -120,12 +120,16 @@ TINY_CLI = ["--model_name", "TinyTest", "--for_steps", "6", "--inv_steps", "6",
     ["--model_name", "DeepFloyd-IF", "--mesh_sp", "2"],
 ])
 def test_unported_flags_raise(extra, tmp_path):
-    """A flag the port cannot honour yet (the mesh flags, for every engine)
-    raises NotImplementedError naming its ROADMAP.md item; it is never
-    silently ignored."""
+    """The mesh flags are ported and honoured for every engine: in one
+    process a mesh of 2 raises make_mesh's ValueError before any model is
+    built (the JAX CLI's error with too few devices), and --mesh_sp on a
+    T2I engine raises the port's ValueError (spatial parallelism runs the
+    uncond engine). Their multi-rank runs: test_torch_parallel.py."""
     argv = TINY_CLI + ["--dataset_name", "Random", "--use_mask", "false",
                        "--result_folder", str(tmp_path), "--dataset_root", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 1[0-5]"):
+    t2i_sp = "--mesh_sp" in extra and "--model_name" in extra
+    match = "uncond engine only" if t2i_sp else r"needs 2 ranks, have 1"
+    with pytest.raises(ValueError, match=match):
         main.main(argv + extra)
 
 
@@ -137,9 +141,10 @@ def test_unported_flags_raise(extra, tmp_path):
 def test_ported_flags_are_supported(extra):
     """--trace_dir, --verify_load and LCM/IF --pixel_output are ported:
     check_supported lets them through (their runs: test_torch_logger.py,
-    test_torch_verify_load.py, test_torch_serve_t2i.py)."""
+    test_torch_verify_load.py, test_torch_serve_t2i.py). No flag of the JAX
+    CLI is left unported."""
     args.check_supported(args.parse_args(TINY_CLI + extra))
-    assert list(args.UNPORTED) == ["mesh_probe", "mesh_data", "mesh_sp"]
+    assert list(args.UNPORTED) == []
 
 
 # -- datasets and masks -------------------------------------------------------------

@@ -10,8 +10,10 @@ import torch
 
 from loco_edit_tpu_torch.ops.flash_attention import (HEAD_DIMS, AttentionFn, attention_plain,
                                                      flash_attention_cuda, kernel_geometry)
-from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_cuda,
-                                               group_norm_plain)
+from loco_edit_tpu_torch.ops.groupnorm import (GroupNormFn, group_norm_apply_cuda,
+                                               group_norm_apply_plain, group_norm_cuda,
+                                               group_norm_plain, group_norm_sums_cuda,
+                                               group_norm_sums_plain)
 from _torch_ddpm_shapes import DDPM_ATTN_SHAPES, DDPM_GN_EPS, DDPM_GN_SHAPES
 from _torch_if_shapes import (IF_CONTEXT, IF_I_M_ATTN_SHAPES, IF_I_M_GN_SHAPES,
                               LCM_ATTN_SHAPES, LCM_CONTEXT)
@@ -107,6 +109,28 @@ def test_groupnorm_kernel_at_every_ddpm_shape_eps_1e6(chw, dtype):
     torch.cuda.synchronize()
     ref = group_norm_plain(x, s, bias, eps=DDPM_GN_EPS)
     assert (got.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chw", sorted(P2_GN_SHAPES))
+def test_groupnorm_split_entries_at_every_p2_shape(chw, dtype):
+    """The statistics entry against its plain version (1e-5 of the largest
+    sum: f32 summation order), the normalize entry from sums over twice the
+    rows (as two ranks' all-reduced sums) against its plain version, and
+    sums -> apply over x's own rows: the fused entry's bits."""
+    x, s, bias = _gn_inputs(_card(), (1, *chw), dtype)
+    c, h, w = chw
+    b0 = (group_norm_sums_cuda.launches, group_norm_apply_cuda.launches)
+    sums = group_norm_sums_cuda(x)
+    ref = group_norm_sums_plain(x)
+    assert (sums - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    n = h * w * c // 32
+    assert torch.equal(group_norm_apply_cuda(x, sums, n, s, bias), group_norm_cuda(x, s, bias))
+    got = group_norm_apply_cuda(x, 2 * sums, 2 * n, s, bias)
+    want = group_norm_apply_plain(x, 2 * sums, 2 * n, s, bias)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+    assert (group_norm_sums_cuda.launches, group_norm_apply_cuda.launches) == \
+        (b0[0] + 1, b0[1] + 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -11,7 +11,11 @@ exception is the t = 0 decoder term of calc_bpd_loop (DECODER_RTOL): its
 likelihood is a difference of two normal CDFs near 1, which f32 holds to
 about 6e-8, so where the model's mean lies a few scales from x0 (the tiny
 random model's does) each framework's tanh rounding moves it by up to ~1e-2
-relative; the terms at t >= 1, the prior and the MSE ledgers stay at 1e-4."""
+relative; the terms at t >= 1, the prior and the MSE ledgers stay at 1e-4.
+test_decoder_term_witness backs this: the term evaluated in float64 from
+each package's own t = 0 means and log-scales agrees to 1.4e-7 relative
+(DECODER_WITNESS_RTOL 1e-6), so the means agree and the gap is the f32
+evaluation of the CDF difference (f32 against float64: ~3e-2 here)."""
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +37,7 @@ torch.set_num_threads(2)
 RTOL = 1e-5      # closed-form terms: f32 rounding
 NET_RTOL = 1e-4  # through the network, relative to the largest value
 DECODER_RTOL = 1e-2
+DECODER_WITNESS_RTOL = 1e-6   # the float64 decoder terms of both packages' means
 STEPS = 10
 
 
@@ -151,6 +156,46 @@ def _close_bpd(got, want):
     _close(vb[:, -1], jvb[:, -1], DECODER_RTOL)
     _close(got["total_bpd"].numpy() - vb[:, -1],
            np.asarray(want["total_bpd"]) - jvb[:, -1])
+
+
+def _decoder_term64(x0, mean, log_scale) -> np.ndarray:
+    """The t = 0 decoder term (bits, mean over pixels) in float64, with the
+    tanh CDF of discretized_gaussian_log_likelihood."""
+    def cdf(v):
+        return 0.5 * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (v + 0.044715 * v ** 3)))
+
+    x0, mean, log_scale = (np.asarray(a, np.float64) for a in (x0, mean, log_scale))
+    centered, inv_std = x0 - mean, np.exp(-log_scale)
+    plus, minus = cdf(inv_std * (centered + 1 / 255)), cdf(inv_std * (centered - 1 / 255))
+    ll = np.where(x0 < -0.999, np.log(np.maximum(plus, 1e-12)),
+                  np.where(x0 > 0.999, np.log(np.maximum(1 - minus, 1e-12)),
+                           np.log(np.maximum(plus - minus, 1e-12))))
+    return -ll.reshape(ll.shape[0], -1).mean(axis=1) / np.log(2.0)
+
+
+def test_decoder_term_witness(model):
+    """Why the t = 0 decoder term is held at DECODER_RTOL: each package's
+    own means and log-scales at t = 0, on the inputs of
+    test_calc_bpd_loop_matched_noise, give the same term in float64 to
+    DECODER_WITNESS_RTOL. The means agree; the f32 terms differ only by
+    the rounding of the CDF difference near 1."""
+    rng = np.random.default_rng(3)
+    x0 = np.tanh(rng.normal(size=(2, 32, 32, 3)) * 0.7).astype(np.float32)
+    x0[0, 0, :4] = 1.0
+    nz = rng.normal(size=(STEPS,) + x0.shape).astype(np.float32)[-1]   # t = 0
+    jmath, tmath = model["jmath"], model["tmath"]
+    t0 = np.zeros((2,), np.int32)
+    jxt = jmath.q_sample(jnp.asarray(x0), t0, jnp.asarray(nz))
+    jmean, jlogvar, _ = jmath.p_mean_logvar(jxt, t0, *model["j_out"](jxt, t0))
+    tt0 = torch.zeros((2,), dtype=torch.long)
+    with torch.no_grad():
+        txt = tmath.q_sample(torch.from_numpy(x0), tt0, torch.from_numpy(nz))
+        tmean, tlogvar, _ = tmath.p_mean_logvar(txt, tt0, *model["t_out"](txt, tt0))
+    j64 = _decoder_term64(x0, jmean, 0.5 * np.asarray(jlogvar))
+    t64 = _decoder_term64(x0, tmean.numpy(), 0.5 * tlogvar.numpy())
+    print("decoder term, float64 from JAX's / the port's means:", j64, t64,
+          "relative gap", np.abs(t64 - j64).max() / np.abs(j64).max())
+    assert np.abs(t64 - j64).max() / np.abs(j64).max() <= DECODER_WITNESS_RTOL
 
 
 def test_calc_bpd_loop_draws_per_step_from_rng(model):

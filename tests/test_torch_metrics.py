@@ -190,3 +190,39 @@ def test_eval_cli_matches_jax(tmp_path, capsys):
         ref_line = capsys.readouterr().out.strip().splitlines()[-1]
         assert abs(got - ref) <= 1e-6 * max(1.0, abs(ref)), extra
         assert got_line.split(":")[0] == ref_line.split(":")[0]
+
+
+def test_lpips_fallback_never_fetches(tmp_path, monkeypatch):
+    """Without local LPIPS weights the torchmetrics fallback runs only when
+    its torchvision backbone is already in the torch hub cache: otherwise it
+    raises with guidance before torchmetrics (which would download the
+    backbone) builds anything."""
+    import sys
+    import types
+
+    built = []
+
+    class Fetching:
+        def __init__(self, *a, **k):
+            built.append(k)
+            raise AssertionError("torchmetrics would download the backbone")
+
+    fake = types.ModuleType("torchmetrics.image.lpip")
+    fake.LearnedPerceptualImagePatchSimilarity = Fetching
+    for name in ("torchmetrics", "torchmetrics.image"):
+        monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    monkeypatch.setitem(sys.modules, "torchmetrics.image.lpip", fake)
+    monkeypatch.delenv("LOCO_LPIPS_WEIGHTS", raising=False)
+    monkeypatch.setattr(torch.hub, "get_dir", lambda: str(tmp_path / "hub"))
+    a, b = _images(2, 64, b=1)
+    for net in (None, "vgg"):
+        with pytest.raises(FileNotFoundError, match="never downloads"):
+            metrics.lpips(a, b, net=net, device="cpu")
+    assert not built
+    # with the backbone in the local cache the fallback goes on to build it
+    ckpt = tmp_path / "hub" / "checkpoints" / "alexnet-owt-7be5be79.pth"
+    ckpt.parent.mkdir(parents=True)
+    ckpt.write_bytes(b"")
+    with pytest.raises(AssertionError, match="would download"):
+        metrics.lpips(a, b, device="cpu")
+    assert built == [{"net_type": "alex", "normalize": True}]

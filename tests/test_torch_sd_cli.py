@@ -128,13 +128,14 @@ def test_sd_cli_without_a_mask_cache_raises(tmp_path):
 
 @pytest.mark.parametrize("argv, error, match", [
     (["--model_name", "LCM_Dreamshaper"], FileNotFoundError, "hf_pipeline reads a local"),
-    (["--model_name", "DeepFloyd-IF", "--mesh_data", "2"], NotImplementedError,
-     "item 15"),
+    (["--model_name", "DeepFloyd-IF", "--mesh_data", "2"], ValueError,
+     "needs 2 ranks, have 1"),
 ])
 def test_other_t2i_families_raise(argv, error, match, tmp_path):
     """The LCM and IF engines run under these flags, and refuse what they
     cannot do before any model is built: LCM SAM masks from hub weights
-    over hf_pipeline (never fetched), IF --mesh_data (ROADMAP item 15)."""
+    over hf_pipeline (never fetched), IF --mesh_data 2 in one process
+    (make_mesh's ValueError, as the JAX CLI's with too few devices)."""
     with pytest.raises(error, match=match):
         main.main(SD_CLI + ["--result_folder", str(tmp_path), "--device", "cpu"] + argv)
 

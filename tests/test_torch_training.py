@@ -379,7 +379,8 @@ def test_native_decode_equals_jax(images):
     if not jnative.available():
         pytest.skip("native pipeline could not build in this environment")
     assert native.available()
-    assert native.BUILD_DIR.endswith(os.path.join("loco_edit_tpu_torch", "_build"))
+    assert os.path.dirname(native._so_path()).endswith(
+        os.path.join("loco_edit_tpu_torch", "_build"))
     paths = sorted(os.path.join(images, f) for f in os.listdir(images))
     for p in paths:
         np.testing.assert_array_equal(native.decode_image(p), jnative.decode_image(p))
