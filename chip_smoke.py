@@ -6,6 +6,9 @@ Run from the root of a checkout, with one CUDA device:
     python3 chip_smoke.py
 
 It exits nonzero, printing no result, without a card or outside a checkout.
+`python3 chip_smoke.py --ranks N` runs phases 1 and 15 alone over N ranks,
+one a card (NCCL) on a host with N cards: the transport that gloo on one
+card does not use (all_gather and send/recv on the card).
 Phases (any failure raises; nothing is caught and skipped):
 
   1. Build the CUDA kernels from loco_edit_tpu_torch/csrc (one nvcc per
@@ -149,10 +152,13 @@ Phases (any failure raises; nothing is caught and skipped):
      one RngStream): loss, grad_norm and the parameter checksum to 1e-4;
      four bf16 data-parallel steps on a fixed batch, whose loss must fall;
      the f32 rank 5+5 basis, 5 fixed sweeps, probes split over the ranks:
-     mean squared principal cosine >= 0.999 a group; 8 bf16 strip frames
-     split 4 + 4 (the boosted tail's noise drawn for all 8 and sliced):
-     relative L2 within BF16_FWD_RTOL; the f32 forward and one J.v at batch
-     1 with the rows split over the ranks: FWD_RTOL. The split path must
+     mean squared principal cosine >= 0.999 a group; 8 f32 strip frames
+     from edit_t P15_STRIP_EDIT_T (25 of 100 steps), split 4 + 4
+     (the boosted tail's noise drawn for all 8 and sliced): relative L2
+     within FWD_RTOL, and a planted fault (each share given its
+     neighbour's rows of that noise, in this process) must miss FWD_RTOL;
+     the f32 forward and one J.v at batch 1 with the rows split over the
+     ranks: FWD_RTOL. The split path must
      launch GroupNorm's statistics and normalize entries and no fused one.
      Each rank prints its backend, device and launches. Phase 2 gains the
      rows of that split path: GroupNorm's two entries at every P2 shape at
@@ -2574,6 +2580,9 @@ P15_WORLD = 2
 P15_TIMEOUT_S = 600          # each join; a rank that fails or hangs fails the phase
 P15_TRAIN_STEPS, P15_BF16_STEPS, P15_BATCH = 2, 4, 8     # P15_BATCH: the global batch
 P15_RANK, P15_SWEEPS, P15_FRAMES = 5, 5, 8
+# the strips: generation from edit_t 0.25 of 100 steps, the last 20 boosted
+# (t < 0.2); the cut (PR 10's bf16 strips ran from 0.6) keeps f32 in budget
+P15_STRIP_EDIT_T = 0.25
 P15_TRAIN_RTOL = 1e-4        # loss, grad_norm, checksum: ranks vs one process
 P15_OVERLAP = 0.999          # basis: mean squared principal cosine per group
 
@@ -2614,11 +2623,31 @@ def _p15_counted(name, fn, out):
     return res
 
 
-def p15_paths(sharded: bool, work_dir: str, device="cuda") -> dict:
-    """Phase 15's paths on FFHQ_P2 at full width, over meshes of every rank
-    (sharded) or in one process: f32 data-parallel train steps, bf16 ones,
-    the probe-sharded f32 rank 5+5 basis, the data-sharded bf16 strips and
-    the spatially split f32 forward and J.v. Returns numpy results, the
+class _NeighbourRows:
+    """The planted fault of phase 15's strips check: a stream whose draws
+    come back with the batch's shares rotated by one, as if each of `world`
+    ranks had taken its neighbour's rows of the boosted tail's eta noise."""
+
+    def __init__(self, stream, world):
+        self.stream, self.world = stream, world
+
+    def fork(self, name):
+        return _NeighbourRows(self.stream.fork(name), self.world)
+
+    def at_step(self, step):
+        return _NeighbourRows(self.stream.at_step(step), self.world)
+
+    def normal(self, shape, *, device, dtype=torch.float32):
+        x = self.stream.normal(shape, device=device, dtype=dtype)
+        return x.roll(shape[0] // self.world, dims=0)
+
+
+def p15_paths(sharded: bool, work_dir: str, device="cuda", world=P15_WORLD) -> dict:
+    """Phase 15's paths on FFHQ_P2 at full width, over meshes of `world`
+    ranks (sharded) or in one process: f32 data-parallel train steps, bf16
+    ones, the probe-sharded f32 rank 5+5 basis, the data-sharded f32 strips
+    (in one process also with the planted fault, uncounted) and the
+    spatially split f32 forward and J.v. Returns numpy results, the
     launches of each path and the seconds it took."""
     from loco_edit_tpu_torch.core.mesh import DATA_AXIS, PROBE_AXIS, make_mesh
     from loco_edit_tpu_torch.core.rng import RngStream
@@ -2632,7 +2661,7 @@ def p15_paths(sharded: bool, work_dir: str, device="cuda") -> dict:
                                               create_train_state, make_train_step)
 
     out = {"launches": {}, "seconds": {}}
-    n = P15_WORLD if sharded else 1
+    n = world if sharded else 1
     rank = 0
     if sharded:
         import torch.distributed as dist
@@ -2645,9 +2674,10 @@ def p15_paths(sharded: bool, work_dir: str, device="cuda") -> dict:
     b = P15_BATCH // n
     x0_mine = x0[rank * b:(rank + 1) * b].to(device)
 
-    # microbatches of 4 in both runs (one microbatch a rank): the kernels see
-    # batch 4; the global noise is drawn once from the step's stream
-    micro = 1 if sharded else P15_BATCH // 4
+    # one microbatch a rank, and as many of the same size in one process:
+    # the kernels see the same batch; the global noise is drawn once from
+    # the step's stream
+    micro = 1 if sharded else world
 
     def train_f32():
         model = _p15_denoiser(torch.float32, device).meta["model"]
@@ -2698,12 +2728,11 @@ def p15_paths(sharded: bool, work_dir: str, device="cuda") -> dict:
             probe_chunk=None if sharded else P15_RANK)
         return [a.vT.cpu().numpy(), bb.vT.cpu().numpy()]
 
-    def strips():
-        den16 = _p15_denoiser(torch.bfloat16, device)
-        cfg = UncondEditConfig(for_steps=100, inv_steps=100, edit_t=0.6,
+    def strips(rng=RngStream.from_seed(9)):
+        cfg = UncondEditConfig(for_steps=100, inv_steps=100, edit_t=P15_STRIP_EDIT_T,
                                performance_boosting_t=0.2, mesh_data=n if sharded else 0,
                                result_folder=work_dir, save_images=False)
-        pipe = UncondEditPipeline(den16, cfg, RngStream.from_seed(9), device=device)
+        pipe = UncondEditPipeline(den, cfg, rng, device=device)
         frames = RngStream.from_seed(10).normal((P15_FRAMES, px, px, 3), device=device)
         return pipe.generate_chunked(frames, pipe.edit_t_idx, None, boost=True).cpu().numpy()
 
@@ -2719,11 +2748,13 @@ def p15_paths(sharded: bool, work_dir: str, device="cuda") -> dict:
         out["train_bf16"] = _p15_counted("p15_train_bf16", train_bf16, out)
     out["basis"] = _p15_counted("p15_basis", basis, out)
     out["strips"] = _p15_counted("p15_strips", strips, out)
+    if not sharded:
+        out["strips_fault"] = strips(_NeighbourRows(RngStream.from_seed(9), world))
     out["sp"] = _p15_counted("p15_sp", spatial, out)
     return out
 
 
-def _p15_rank(rank, port, work_dir, device, queue):
+def _p15_rank(rank, world, port, work_dir, device, queue):
     """One rank of phase 15: start the group, run p15_paths sharded, send
     the result (or the traceback) to the parent."""
     import traceback
@@ -2733,9 +2764,9 @@ def _p15_rank(rank, port, work_dir, device, queue):
 
         from loco_edit_tpu_torch.core.mesh import initialize_distributed
 
-        backend = initialize_distributed(f"127.0.0.1:{port}", P15_WORLD, rank, device=device)
+        backend = initialize_distributed(f"127.0.0.1:{port}", world, rank, device=device)
         dev = torch.cuda.current_device()
-        out = p15_paths(True, work_dir, device)
+        out = p15_paths(True, work_dir, device, world)
         out.update(backend=backend, device=f"cuda:{dev} {torch.cuda.get_device_name(dev)}",
                    calls=dict(MAIN_PATH_CALLS), peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         queue.put((rank, "ok", out))
@@ -2745,8 +2776,8 @@ def _p15_rank(rank, port, work_dir, device, queue):
         queue.put((rank, "error", traceback.format_exc()))
 
 
-def p15_spawn(work_dir, device):
-    """Both ranks, each join under P15_TIMEOUT_S; kills them on failure."""
+def p15_spawn(work_dir, device, world):
+    """`world` ranks, each join under P15_TIMEOUT_S; kills them on failure."""
     import multiprocessing as mp
     import queue as queue_mod
     import socket
@@ -2756,17 +2787,17 @@ def p15_spawn(work_dir, device):
         port = sk.getsockname()[1]
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_p15_rank, args=(r, port, work_dir, device, q))
-             for r in range(P15_WORLD)]
+    procs = [ctx.Process(target=_p15_rank, args=(r, world, port, work_dir, device, q))
+             for r in range(world)]
     results = {}
     try:
         for p in procs:
             p.start()
         deadline = time.perf_counter() + P15_TIMEOUT_S
-        while len(results) < P15_WORLD:
+        while len(results) < world:
             left = deadline - time.perf_counter()
             if left <= 0:
-                fail(f"[15 mesh] ranks {sorted(set(range(P15_WORLD)) - set(results))} "
+                fail(f"[15 mesh] ranks {sorted(set(range(world)) - set(results))} "
                      f"did not finish in {P15_TIMEOUT_S} s")
             try:
                 r, status, out = q.get(timeout=min(left, 5.0))
@@ -2788,7 +2819,7 @@ def p15_spawn(work_dir, device):
             if p.is_alive():
                 p.kill()
                 p.join(10)
-    return [results[r] for r in range(P15_WORLD)]
+    return [results[r] for r in range(world)]
 
 
 def sp_gn_rows(gn_calls, g):
@@ -2894,12 +2925,13 @@ def sp_kernel_rows(model):
     return rows
 
 
-def phase_mesh(work_dir, device="cuda"):
-    """15: phase 15's paths in two ranks on the one card (gloo), each held
+def phase_mesh(work_dir, device="cuda", world=P15_WORLD):
+    """15: phase 15's paths in `world` ranks (two on the one card over gloo;
+    with --ranks N, one a card over NCCL where there are N cards), each held
     to the one-process run in this process. Returns the launches of each
     path summed over the ranks, and records the ranks' call shapes."""
     t0 = time.perf_counter()
-    ranks = p15_spawn(work_dir, device)
+    ranks = p15_spawn(work_dir, device, world)
     ranks_s = time.perf_counter() - t0
     for r, o in enumerate(ranks):
         log(f"[15 mesh] rank {r}: backend {o['backend']}, device {o['device']}, launches "
@@ -2910,9 +2942,13 @@ def phase_mesh(work_dir, device="cuda"):
     gc.collect()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    one = p15_paths(False, work_dir, device)
+    one = p15_paths(False, work_dir, device, world)
     one_s = time.perf_counter() - t1
-    checks, nums = {}, {}
+    fault = torch.from_numpy(one["strips_fault"])
+    nums = {"strips_fault_rel_l2": float((fault - torch.from_numpy(one["strips"])).norm()
+                                         / torch.from_numpy(one["strips"]).norm())}
+    # the planted fault must miss the limit the ranks are held to
+    checks = {"strips_fault_fails": nums["strips_fault_rel_l2"] > FWD_RTOL}
     for r, o in enumerate(ranks):
         tr = [max(rel_err(torch.tensor(m[k]), torch.tensor(w_[k])) for k in m)
               for m, w_ in zip(o["train_f32"]["metrics"], one["train_f32"]["metrics"])]
@@ -2931,7 +2967,7 @@ def phase_mesh(work_dir, device="cuda"):
         checks[f"rank{r}_basis"] = min(v for v, _ in ov) >= P15_OVERLAP
         a, b_ = torch.from_numpy(o["strips"]), torch.from_numpy(one["strips"])
         nums[f"rank{r}_strips_rel_l2"] = float((a - b_).norm() / b_.norm())
-        checks[f"rank{r}_strips"] = nums[f"rank{r}_strips_rel_l2"] <= BF16_FWD_RTOL
+        checks[f"rank{r}_strips"] = nums[f"rank{r}_strips_rel_l2"] <= FWD_RTOL
         for k in ("eps", "jv"):
             nums[f"rank{r}_sp_{k}_rel"] = rel_err(torch.from_numpy(o["sp"][k]),
                                                   torch.from_numpy(one["sp"][k]))
@@ -2947,14 +2983,16 @@ def phase_mesh(work_dir, device="cuda"):
             for p in ("p15_train_f32", "p15_train_bf16", "p15_basis", "p15_strips"))
         checks[f"rank{r}_finite"] = bool(np.isfinite(o["strips"]).all()
                                          and np.isfinite(o["sp"]["jv"]).all())
-    log(f"[15 mesh] FFHQ_P2 at full width in {P15_WORLD} ranks on one card: ranks "
+    log(f"[15 mesh] FFHQ_P2 at full width in {world} ranks on "
+        f"{min(world, torch.cuda.device_count())} card(s), backend {ranks[0]['backend']}: ranks "
         f"{ranks_s:.1f} s (spawn, build load and all paths), the one-process runs "
         f"{one_s:.1f} s ({({k: round(v, 2) for k, v in one['seconds'].items()})}); "
-        f"f32 train {P15_TRAIN_STEPS} steps at {P15_BATCH // P15_WORLD} a rank (one "
+        f"f32 train {P15_TRAIN_STEPS} steps at {P15_BATCH // world} a rank (one "
         f"process {P15_BATCH}): loss/grad_norm/checksum tol {P15_TRAIN_RTOL:.0e}; bf16 "
         f"losses rank 0 {[round(v, 5) for v in ranks[0]['train_bf16']]}; basis rank "
         f"{P15_RANK}+{P15_RANK}, {P15_SWEEPS} sweeps (overlap tol {P15_OVERLAP}); strips "
-        f"{P15_FRAMES} frames (rel L2 tol {BF16_FWD_RTOL:.0e}, bf16); SP f32 eps and J.v "
+        f"{P15_FRAMES} frames from edit_t {P15_STRIP_EDIT_T} (rel L2 tol {FWD_RTOL:.0e}, "
+        f"f32; the planted fault must exceed it); SP f32 eps and J.v "
         f"(tol {FWD_RTOL:.0e}); numbers {nums}; checks {checks}")
     if not all(checks.values()):
         fail(f"phase 15 checks failed: {checks}")
@@ -2982,7 +3020,13 @@ def summarize_split(rows, name, launches):
             "library_ms": None}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run phases 1 and 15 alone over this many ranks")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
               file=sys.stderr)
@@ -2998,6 +3042,15 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_build()
+    if args.ranks:
+        with tempfile.TemporaryDirectory() as work_dir:
+            phase_mesh(work_dir, world=args.ranks)
+        log(f"[15 mesh] phase: {time.perf_counter() - t_start:.1f} s with the build")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     den32 = load_adm_denoiser("FFHQ_P2", dtype=torch.float32, device="cuda", seed=0)
     with tf32_convs(False):

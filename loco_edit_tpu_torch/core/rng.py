@@ -12,7 +12,6 @@ and `normal` can stand in for one, which is how tests feed the JAX package's
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import os
@@ -56,33 +55,38 @@ class RngStream:
         return torch.Generator(device=device).manual_seed(self.seed)
 
     def normal(self, shape, *, device, dtype=torch.float32) -> torch.Tensor:
-        """Standard normal draw of `shape` from this stream's generator.
-        Inside draw_rows, a draw whose leading axis is the window's share is
-        drawn for the whole batch and the share's rows are returned."""
-        shape = tuple(shape)
-        if _windows and shape and shape[0] == _windows[-1][1]:
-            lo, n, total = _windows[-1]
-            full = torch.randn((total,) + shape[1:], generator=self.generator(device),
-                               device=device, dtype=dtype)
-            return full[lo:lo + n]
-        return torch.randn(shape, generator=self.generator(device),
+        """Standard normal draw of `shape` from this stream's generator."""
+        return torch.randn(tuple(shape), generator=self.generator(device),
                            device=device, dtype=dtype)
 
 
-_windows: list[tuple[int, int, int]] = []
+@dataclasses.dataclass(frozen=True)
+class RowWindow:
+    """A stream seen by the rank that runs rows [lo, lo + n) of a `total`-row
+    batch: every draw is made for the whole batch from the wrapped stream and
+    this rank's rows are returned, so a data-sharded run draws what the
+    unsharded run draws for those rows (the JAX package's draws of a sharded
+    program). A draw must have n rows; any other draw raises."""
 
+    stream: object
+    lo: int
+    n: int
+    total: int
 
-@contextlib.contextmanager
-def draw_rows(lo: int, n: int, total: int):
-    """Within the block, a stream's draws of a batch of n rows return rows
-    [lo, lo + n) of the same draw for `total` rows: a rank that runs its
-    share of a data-sharded batch draws what the whole batch's run draws
-    for those rows (the JAX package's draws of a sharded program)."""
-    _windows.append((lo, n, total))
-    try:
-        yield
-    finally:
-        _windows.pop()
+    def fork(self, name: str) -> "RowWindow":
+        return dataclasses.replace(self, stream=self.stream.fork(name))
+
+    def at_step(self, step: int) -> "RowWindow":
+        return dataclasses.replace(self, stream=self.stream.at_step(step))
+
+    def normal(self, shape, *, device, dtype=torch.float32) -> torch.Tensor:
+        shape = tuple(shape)
+        if not shape or shape[0] != self.n:
+            raise ValueError(f"a draw of shape {shape} inside a share of {self.n} "
+                             f"rows of {self.total}: only draws of the share's "
+                             "rows can be drawn for the whole batch")
+        full = self.stream.normal((self.total,) + shape[1:], device=device, dtype=dtype)
+        return full[self.lo:self.lo + self.n]
 
 
 def seed_everything(seed: int) -> RngStream:

@@ -28,7 +28,6 @@ How the JAX package's transforms map onto torch.func:
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable
 
 import torch
@@ -53,18 +52,12 @@ class EditBasis:
     iters: int
 
 
-def padded_probe_count(rank: int, d_in: int | None = None,
-                       mesh_size: int | None = None,
-                       pad_probes: bool = False) -> int:
-    """Probe-batch size an extraction executes for `rank`, capped at the
-    space dimension. The JAX package pads up to the 8-sublane tile (lcm
-    with the mesh size when probe-sharded) on the TPU only; the port never
-    runs there, so pad_probes defaults to False and the count is `rank`."""
-    r_eff = rank
-    if pad_probes:
-        mult = 8 if mesh_size is None else math.lcm(8, mesh_size)
-        r_eff = -(-rank // mult) * mult
-    return r_eff if d_in is None else min(r_eff, d_in)
+def padded_probe_count(rank: int, d_in: int | None = None) -> int:
+    """Probe-batch size an extraction executes for `rank`: no padding on the
+    card, capped at the space dimension. The JAX package pads to the 8-sublane
+    tile (lcm with the probe mesh) on the TPU only, so the port never pads,
+    probe-sharded or not."""
+    return rank if d_in is None else min(rank, d_in)
 
 
 def _probe_share(n: int, probe_mesh) -> tuple[int, int, int]:

@@ -8,19 +8,17 @@ JAX package's default, the lean JVP (ops/flash_attention.py).
 from __future__ import annotations
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function_variadic
 
 from loco_edit_tpu_torch.ops.flash_attention import AttentionFn
-from loco_edit_tpu_torch.parallel.collectives import all_gather
-from loco_edit_tpu_torch.parallel.sp import active_sp_group
 
 
 def sdp_attention(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
-    """q, k, v: (B, H, N, D). Returns (B, H, N, D) in q.dtype. Under
-    spatial parallelism (parallel/sp.py) the tokens are this rank's band:
-    keys and values are gathered from every rank, so each query attends to
-    the whole image (the kernel takes N_q != N_kv)."""
-    group = active_sp_group()
-    if group is not None:
-        k, v = all_gather(k, 2, group), all_gather(v, 2, group)
+    """q, k, v: (B, H, N, D). Returns (B, H, N, D) in q.dtype; the kernel
+    takes N_q != N_kv. Overridable by a TorchFunctionMode: spatial
+    parallelism (parallel/sp.py) gathers every rank's keys and values
+    before the call, so this rank's queries attend to the whole image."""
+    if has_torch_function_variadic(q, k, v):
+        return handle_torch_function(sdp_attention, (q, k, v), q, k, v)
     return AttentionFn.apply(q, k, v)

@@ -22,11 +22,17 @@ follow from that:
     exchanged alike, the halo's cotangent sent back to its owner and added.
 
 With group None (one rank) each is the identity, or zero padding for
-halo_pad. The transport is all_reduce over a zero-filled buffer, which
-every backend moves, CUDA tensors over gloo included.
+halo_pad. The transport is chosen in one place (`_native`): the backend's
+own all_gather and point-to-point sends (a halo goes only to the
+neighbour), except for CUDA tensors over gloo, which moves those only by
+all_reduce and broadcast. Ranks that share a card over gloo send a gather
+as an all_reduce over a zero-filled (world x part) buffer, and a halo as
+such a gather.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as dist
@@ -51,15 +57,63 @@ def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return y
 
 
+# torch >= 2.13 renames all_gather_into_tensor
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def _native(x: torch.Tensor, group) -> bool:
+    """Whether the backend moves x by its own all_gather and send/recv."""
+    return not (x.is_cuda and dist.get_backend(group) == "gloo")
+
+
 def gather_stack(x: torch.Tensor, group) -> torch.Tensor:
     """(world, *x.shape): every rank's x, in rank order."""
     w = group_size(group)
     if w == 1:
         return x[None]
+    x = x.contiguous()
+    if _native(x, group):
+        buf = x.new_empty((w * x.numel(),))
+        _all_gather_single(buf, x.reshape(-1), group=group)
+        return buf.reshape((w,) + tuple(x.shape))
     buf = x.new_zeros((w,) + tuple(x.shape))
     buf[group_rank(group)] = x
     dist.all_reduce(buf, group=group)
     return buf
+
+
+def neighbour_rows(to_prev: torch.Tensor | None, to_next: torch.Tensor | None,
+                   group) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """(from_prev, from_next): the previous rank's to_next and the next
+    rank's to_prev (None at the first / last rank, or where no rank sends
+    that way). Every rank passes tensors of the same shapes, or None alike."""
+    r, w = group_rank(group), group_size(group)
+    like = to_prev if to_prev is not None else to_next
+    if like is None or w == 1:
+        return None, None
+    if not _native(like, group):       # a gather of each direction's rows
+        prev_rows = None if to_next is None else gather_stack(to_next, group)
+        next_rows = None if to_prev is None else gather_stack(to_prev, group)
+        return (None if prev_rows is None or r == 0 else prev_rows[r - 1],
+                None if next_rows is None or r == w - 1 else next_rows[r + 1])
+    peer = functools.partial(dist.get_global_rank, group)
+    to_prev, to_next = (None if t is None else t.contiguous() for t in (to_prev, to_next))
+    ops, from_prev, from_next = [], None, None
+    if r > 0:
+        if to_next is not None:
+            from_prev = torch.empty_like(to_next)
+            ops.append(dist.P2POp(dist.irecv, from_prev, peer(r - 1), group))
+        if to_prev is not None:
+            ops.append(dist.P2POp(dist.isend, to_prev, peer(r - 1), group))
+    if r < w - 1:
+        if to_prev is not None:
+            from_next = torch.empty_like(to_prev)
+            ops.append(dist.P2POp(dist.irecv, from_next, peer(r + 1), group))
+        if to_next is not None:
+            ops.append(dist.P2POp(dist.isend, to_next, peer(r + 1), group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return from_prev, from_next
 
 
 def gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -168,18 +222,19 @@ class HaloPad(torch.autograd.Function):
         h = x.shape[-2]
         if top > h or bottom > h:
             raise ValueError(f"halo of {max(top, bottom)} rows over a band of {h}")
-        r, w = group_rank(group), group_size(group)
+        # my top halo is the previous rank's last rows, my bottom halo the
+        # next rank's first rows
+        above, below = neighbour_rows(x[..., :bottom, :] if bottom else None,
+                                      x[..., h - top:, :] if top else None, group)
         edge_shape = list(x.shape)
         parts = []
         if top:
             edge_shape[-2] = top
-            last = gather_stack(x[..., h - top:, :], group)   # each rank's last rows
-            parts.append(last[r - 1] if r > 0 else x.new_zeros(edge_shape))
+            parts.append(above if above is not None else x.new_zeros(edge_shape))
         parts.append(x)
         if bottom:
             edge_shape[-2] = bottom
-            first = gather_stack(x[..., :bottom, :], group)   # each rank's first rows
-            parts.append(first[r + 1] if r < w - 1 else x.new_zeros(edge_shape))
+            parts.append(below if below is not None else x.new_zeros(edge_shape))
         return torch.cat(parts, dim=-2)
 
     @staticmethod
@@ -208,17 +263,16 @@ class HaloUnpad(torch.autograd.Function):
     @staticmethod
     def forward(g, top, bottom, group):
         h = g.shape[-2] - top - bottom
-        r, w = group_rank(group), group_size(group)
         out = g[..., top:top + h, :].clone()
-        if top:
-            # my top halo is the previous rank's last rows
-            back = gather_stack(g[..., :top, :], group)
-            if r < w - 1:
-                out[..., h - top:, :] += back[r + 1]
-        if bottom:
-            back = gather_stack(g[..., top + h:, :], group)
-            if r > 0:
-                out[..., :bottom, :] += back[r - 1]
+        # my top halo goes back to the previous rank's last rows, my bottom
+        # halo to the next rank's first rows
+        from_prev, from_next = neighbour_rows(g[..., :top, :] if top else None,
+                                              g[..., top + h:, :] if bottom else None,
+                                              group)
+        if from_next is not None:
+            out[..., h - top:, :] += from_next
+        if from_prev is not None:
+            out[..., :bottom, :] += from_prev
         return out
 
     @staticmethod

@@ -12,10 +12,11 @@ where the port writes those collectives itself:
     pad take halo rows from the neighbouring ranks (collectives.halo_pad)
     in place of zero padding in the height; the nearest upsample and the
     average pool are local;
-  - GroupNorm (ops/norms.py) runs the kernel's statistics pass, all-reduces
-    the sums and runs its normalize pass with the whole image's statistics;
-  - attention (ops/attention.py) gathers keys and values from every rank,
-    so the local queries attend to all tokens.
+  - GroupNorm (ops/norms.py) is given the group: it runs the kernel's
+    statistics pass, all-reduces the sums and runs its normalize pass with
+    the whole image's statistics;
+  - attention (ops/attention.py) is given keys and values gathered from
+    every rank, so the local queries attend to all tokens.
 
 Every collective is differentiable under torch.func (collectives.py), so the
 sharded denoiser goes through the Jacobian subspace iteration unchanged.
@@ -32,18 +33,11 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from loco_edit_tpu_torch.core.mesh import Mesh, make_mesh, world_size
-from loco_edit_tpu_torch.parallel.collectives import (gather_replicated, halo_pad,
-                                                      take_shard)
+from loco_edit_tpu_torch.ops import group_norm_f32, sdp_attention
+from loco_edit_tpu_torch.parallel.collectives import (all_gather, gather_replicated,
+                                                      halo_pad, take_shard)
 
 SP_AXIS = "sp"
-
-_active: list = []   # the process group of the innermost sp_context
-
-
-def active_sp_group():
-    """The process group rows are split over, or None outside sp_context
-    (and for a one-rank mesh)."""
-    return _active[-1] if _active else None
 
 
 def make_sp_mesh(n_devices: int | None = None) -> Mesh:
@@ -57,7 +51,8 @@ def _pair(v):
 
 
 class _SPMode(TorchFunctionMode):
-    """Rewrites the height padding of conv2d and of F.pad into halo rows."""
+    """Rewrites the height padding of conv2d and of F.pad into halo rows,
+    gives GroupNorm the group and attention every rank's keys and values."""
 
     def __init__(self, group):
         super().__init__()
@@ -69,6 +64,11 @@ class _SPMode(TorchFunctionMode):
             return self._conv2d(*args, **kwargs)
         if func is F.pad:
             return self._pad(*args, **kwargs)
+        if func is group_norm_f32:
+            return func(*args, **dict(kwargs, group=self.group))
+        if func is sdp_attention:
+            q, k, v = args
+            return func(q, all_gather(k, 2, self.group), all_gather(v, 2, self.group))
         return func(*args, **kwargs)
 
     def _conv2d(self, x, weight, bias=None, stride=1, padding=0, dilation=1,
@@ -100,12 +100,8 @@ def sp_context(mesh: Mesh):
     if group is None:
         yield
         return
-    _active.append(group)
-    try:
-        with _SPMode(group):
-            yield
-    finally:
-        _active.pop()
+    with _SPMode(group):
+        yield
 
 
 def spatial_sharded(fn: Callable, mesh: Mesh) -> Callable:

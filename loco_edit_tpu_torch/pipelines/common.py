@@ -27,16 +27,16 @@ import torch
 
 from loco_edit_tpu_torch.core.mesh import (DATA_AXIS, PROBE_AXIS, is_main_process,
                                            make_mesh, world_size)
-from loco_edit_tpu_torch.core.rng import draw_rows
+from loco_edit_tpu_torch.core.rng import RowWindow
 from loco_edit_tpu_torch.parallel.collectives import gather_cat
 from loco_edit_tpu_torch.utils.chunk import map_chunked
 
 
 class EngineExec:
     """Mixin for edit pipelines: overlapped artifact IO, mesh sharding
-    (probe / data axes) and chunked batch execution. Expects `self.cfg`
-    with optional `memory_bound`, `mesh_probe` and `mesh_data` fields;
-    every helper is a one-rank no-op when a field is absent or at most 1.
+    (probe / data axes) and chunked batch execution. Expects `self.rng` and
+    `self.cfg` with optional `memory_bound`, `mesh_probe` and `mesh_data`
+    fields; every helper is a one-rank no-op when a field is absent or at most 1.
     State is created lazily so engines need no __init__ cooperation."""
 
     def _submit_io(self, fn, *args, **kw):
@@ -84,9 +84,9 @@ class EngineExec:
     def _split_over_data(self, fn, x: torch.Tensor, mesh) -> torch.Tensor:
         """fn over x's leading axis padded to the mesh and split into equal
         shares, one a rank, the results all-gathered (the same on every
-        rank) and the padding dropped. Random draws inside fn whose leading
-        axis is the share are drawn for the whole padded batch and sliced
-        (core/rng.py::draw_rows), so the result equals the unsharded run of
+        rank) and the padding dropped. While fn runs, self.rng is a
+        core/rng.py::RowWindow over this rank's rows, so its draws are the
+        whole padded batch's rows and the result equals the unsharded run of
         the padded batch."""
         b = x.shape[0]
         pad = (-b) % mesh.size
@@ -94,8 +94,12 @@ class EngineExec:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
         per = x.shape[0] // mesh.size
         lo = mesh.coordinate(DATA_AXIS) * per
-        with draw_rows(lo, per, x.shape[0]):
+        rng = self.rng
+        self.rng = RowWindow(rng, lo, per, x.shape[0])
+        try:
             out = fn(x[lo:lo + per])
+        finally:
+            self.rng = rng
         out = gather_cat(out, 0, mesh.group(DATA_AXIS))
         return out[:b] if pad else out
 

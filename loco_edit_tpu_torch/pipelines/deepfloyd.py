@@ -338,8 +338,8 @@ class IFEditPipeline(EngineExec):
         vT_null_pre = None
         use_dual = (not semantic and not cached and cfg.null_space_projection
                     and mask is not None
-                    and padded_probe_count(cfg.pca_rank, mesh_size=cfg.mesh_probe or None)
-                    == padded_probe_count(cfg.pca_rank_null, mesh_size=cfg.mesh_probe or None))
+                    and padded_probe_count(cfg.pca_rank)
+                    == padded_probe_count(cfg.pca_rank_null))
 
         if cached:
             vT_modify = self._tensor(load_directions(modify_path)[0])

@@ -218,8 +218,8 @@ class LCMEditPipeline(EngineExec):
         fuses into one dual iteration when their probe counts agree."""
         cfg = self.cfg
         use_dual = (cfg.non_semantic and cfg.null_space_projection and mask is not None
-                    and padded_probe_count(cfg.pca_rank, mesh_size=cfg.mesh_probe or None)
-                    == padded_probe_count(cfg.pca_rank_null, mesh_size=cfg.mesh_probe or None))
+                    and padded_probe_count(cfg.pca_rank)
+                    == padded_probe_count(cfg.pca_rank_null))
         vT_null_pre = None
         if use_dual:
             t0 = time.time()

@@ -189,8 +189,8 @@ class UncondEditPipeline(EngineExec):
             cfg.null_space_projection and mask is not None
             and not os.path.exists(mod_path)
             and not os.path.exists(null_path)
-            and padded_probe_count(cfg.pca_rank, mesh_size=cfg.mesh_probe or None)
-            == padded_probe_count(cfg.pca_rank_null, mesh_size=cfg.mesh_probe or None))
+            and padded_probe_count(cfg.pca_rank)
+            == padded_probe_count(cfg.pca_rank_null))
 
         if os.path.exists(mod_path):
             vT_modify = self._tensor(load_directions(mod_path)[0])

@@ -61,7 +61,7 @@ def train_step_run(p, mesh, steps: int):
             "moment_shapes": moment_shapes}
 
 
-def loop_run(p, mesh):
+def loop_run(p, mesh, schedule=None):
     """run_training over the payload's toy batches (each rank its rows)."""
     from loco_edit_tpu_torch.core.mesh import DATA_AXIS
     from loco_edit_tpu_torch.parallel.checks import replicated_params_checksum
@@ -81,9 +81,67 @@ def loop_run(p, mesh):
             i += 1
 
     state = run_training(model, data(), cfg=TrainConfig(lr=1e-3, microbatches=2),
-                         mesh=mesh, total_steps=p["loop_steps"], log_interval=100,
-                         ckpt_dir=None, loss_aware=True, seed=3, device="cpu")
-    return {"step": state.step, "checksum": float(replicated_params_checksum(state.params))}
+                         schedule=schedule, mesh=mesh, total_steps=p["loop_steps"],
+                         log_interval=100, ckpt_dir=None, loss_aware=True, seed=3,
+                         device="cpu")
+    return {"step": state.step, "checksum": float(replicated_params_checksum(state.params)),
+            "params": {k: _np(v) for k, v in state.params.items()}}
+
+
+def loop_table_run(p, mesh):
+    """run_training over the payload's batches with the loss-aware resampler
+    over p["loop_t_steps"] timesteps (2 losses of history each), its
+    timesteps table[("t", step)] and its noise JAX's draws from the table
+    (TableDraws in place of the loop's RngStream), so that it can be held to
+    the JAX loop on the same draws. Returns the step and the parameters."""
+    import dataclasses
+
+    from loco_edit_tpu_torch.diffusion.schedule import NoiseSchedule
+    from loco_edit_tpu_torch.training import loop as loop_mod
+    from loco_edit_tpu_torch.training.resample import LossSecondMomentResampler
+
+    @dataclasses.dataclass(frozen=True)
+    class TableResampler(LossSecondMomentResampler):
+        history_per_term: int = 2
+
+        def sample(self, rng, batch, state):
+            t = torch.from_numpy(rng.table[("t",) + rng.path]).long()
+            return t, 1.0 / (self.num_timesteps * self._weights(state)[t])
+
+    class TableRoot:
+        @staticmethod
+        def from_seed(seed):
+            return TableDraws(p["loop_table"])
+
+    saved = loop_mod.LossSecondMomentResampler, loop_mod.RngStream
+    loop_mod.LossSecondMomentResampler, loop_mod.RngStream = TableResampler, TableRoot
+    try:
+        out = loop_run(p, mesh, schedule=NoiseSchedule.linear(timesteps=p["loop_t_steps"]))
+    finally:
+        loop_mod.LossSecondMomentResampler, loop_mod.RngStream = saved
+    return out
+
+
+def transport_cases():
+    """gather_stack, halo_pad and its transpose over every rank, by the
+    backend's own all_gather and send/recv and by the all_reduce fallback
+    (collectives._native forced False): x is 1000 * rank + arange."""
+    from loco_edit_tpu_torch.parallel import collectives
+
+    g = make_mesh({"sp": world_size()}).group("sp")
+    x = torch.arange(2 * 3 * 4 * 5, dtype=torch.float32).reshape(2, 3, 4, 5) + 1000 * rank()
+    out = {}
+    for name in ("native", "fallback"):
+        saved = collectives._native
+        if name == "fallback":
+            collectives._native = lambda t, group: False
+        try:
+            out[name] = {"gather": _np(collectives.gather_stack(x, g)),
+                         "pad": _np(collectives.halo_pad(x, 2, 1, g)),
+                         "unpad": _np(collectives.HaloUnpad.apply(x, 1, 1, g))}
+        finally:
+            collectives._native = saved
+    return out
 
 
 def sharded_gn(p):
@@ -114,6 +172,8 @@ def mesh_cases(p):
     data_mesh = make_mesh()
     out["dp"] = train_step_run(p, data_mesh, steps=2)
     out["loop"] = loop_run(p, data_mesh)
+    out["loop_jax"] = loop_table_run(p, data_mesh)
+    out["transport"] = transport_cases()
     tp_p = dict(p, x0=p["tp_x0"], t=p["tp_t"], w=p["tp_w"], noise=p["tp_noise"],
                 cfg=p["tp_cfg"], tp_min_size=1 << 10)
     out["tp"] = train_step_run(tp_p, make_mesh({"data": 2, "tp": 2}), steps=1)
@@ -125,8 +185,8 @@ def mesh_cases(p):
 
 class TableDraws:
     """An RngStream stand-in that yields given arrays: table[(path, step)]
-    is the draw for the whole batch; inside core/rng.py::draw_rows a draw
-    of the share's rows returns those rows of it, as RngStream.normal does."""
+    is the draw for the whole batch (a data-sharded share draws through a
+    core/rng.py::RowWindow around it, which asks for the whole batch)."""
 
     def __init__(self, table, path=()):
         self.table, self.path = table, path
@@ -138,12 +198,7 @@ class TableDraws:
         return TableDraws(self.table, self.path + (step,))
 
     def normal(self, shape, *, device, dtype=torch.float32):
-        from loco_edit_tpu_torch.core import rng
-
         full = torch.from_numpy(self.table[self.path]).to(device=device, dtype=dtype)
-        if rng._windows and shape[0] == rng._windows[-1][1]:
-            lo, n, _ = rng._windows[-1]
-            full = full[lo:lo + n]
         assert tuple(full.shape) == tuple(shape), (self.path, full.shape, shape)
         return full
 

@@ -14,7 +14,12 @@ mesh_cases), each held to the one-process port and to JAX:
     per-sample losses to LOSS_RTOL, the checksum of the parameters to
     CHECKSUM_RTOL and equal on every rank;
   - run_training(mesh=) with the loss-aware resampler: the same step and
-    checksum as one process;
+    checksum as one process; and, with the timesteps from a table and JAX's
+    noise over an 8-step schedule whose resampler warms up after 2 steps,
+    the same step, checksum and parameters as JAX's run_training over a
+    4-device data mesh (the ranks' resampler fed the gathered losses);
+  - the transport: gathers and halo exchanges by gloo's own all_gather and
+    send/recv equal to the all_reduce fallback and to what they move;
   - one train step over a (data 2 x tp 2) mesh with the state split on its
     output features: the same loss, grad_norm and parameters, and the
     masters, EMA and Adam moments held in halves;
@@ -22,8 +27,10 @@ mesh_cases), each held to the one-process port and to JAX:
     all-reduce, normalize pass): value, J v and v^T J against the plain
     GroupNorm of the whole tensor, to GN_ATOL."""
 
+import dataclasses
 import os
 
+import flax.traverse_util
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,11 +41,16 @@ from jax.sharding import Mesh as JaxMesh
 from loco_edit_tpu.core import mesh as jmesh
 from loco_edit_tpu.diffusion.schedule import NoiseSchedule as JaxSchedule
 from loco_edit_tpu.parallel import tp as jtp
+from loco_edit_tpu.training import loop as jloop
 from loco_edit_tpu.training import trainer as jtr
+from loco_edit_tpu.training.resample import LossSecondMomentResampler as JaxResampler
 from loco_edit_tpu_torch.core import cache, mesh
+from loco_edit_tpu_torch.core.rng import RngStream, RowWindow
+from loco_edit_tpu_torch.models.adm.presets import tiny_test_config
+from loco_edit_tpu_torch.models.registry import adm_params_from_flax
 from loco_edit_tpu_torch.ops.groupnorm import GroupNormFn
 from loco_edit_tpu_torch.parallel import checks, tp
-from _torch_dist_cases import mesh_cases, train_step_run
+from _torch_dist_cases import mesh_cases, tiny_model, train_step_run
 from _torch_dist_utils import Ranks
 from _torch_port_utils import JaxDraws, tiny_pair
 
@@ -132,6 +144,19 @@ def test_tp_fraction_matches_jax(min_size, pair):
                             for s in jax.tree.leaves(jsh))
 
 
+def test_row_window_draws_rows_of_the_whole_batch():
+    """A data-sharded share's stream: each draw is the whole batch's, this
+    share's rows returned; a draw of any other row count raises."""
+    s = RngStream.from_seed(4).fork("boost-eta")
+    w = RowWindow(s, 2, 2, 6)
+    for a, b in ((w.at_step(3), s.at_step(3)), (w.fork("x").at_step(1), s.fork("x").at_step(1))):
+        np.testing.assert_array_equal(a.normal((2, 4, 4, 3), device="cpu").numpy(),
+                                      b.normal((6, 4, 4, 3), device="cpu")[2:4].numpy())
+    for shape in ((1, 4, 4, 3), (4, 4, 4, 3), ()):
+        with pytest.raises(ValueError, match="share of 2 rows of 6"):
+            w.normal(shape, device="cpu")
+
+
 def test_build_directory_resolution(monkeypatch, tmp_path):
     """LOCO_COMPILE_CACHE first (a path, or off: a fresh temporary
     directory), then the checkout's _build/, then ~/.cache for an install;
@@ -186,6 +211,62 @@ def _noise(key, b, n_micro):
         (b // n_micro, 32, 32, 3), device="cpu").numpy() for i in range(n_micro)])
 
 
+def _jax_loop(jm, params, batches, table, n_t, steps):
+    """JAX's run_training over a 4-device data mesh on the batches, loss-
+    aware over n_t timesteps with 2 losses of history, the timesteps from
+    the table: the final step and parameters in the port's layout."""
+    ts = iter(table[("t", s)] for s in range(steps))
+
+    @dataclasses.dataclass(frozen=True)
+    class TableResampler(JaxResampler):
+        history_per_term: int = 2
+
+        def sample(self, key, batch, state):
+            # host arrays: the jitted step places them on the mesh (the
+            # resampler's own would come back committed to it, replicated)
+            t = np.asarray(next(ts))
+            p = np.asarray(self._weights(state))
+            return t, (1.0 / (self.num_timesteps * p[t])).astype(np.float32)
+
+    def data():
+        i = 0
+        while True:
+            yield batches[i % len(batches)], None
+            i += 1
+
+    apply_fn = lambda p, x, tt: jm.apply(p, x, tt.astype(jnp.float32))  # noqa: E731
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jloop, "LossSecondMomentResampler", TableResampler)
+        state = jloop.run_training(
+            apply_fn, params, data(), cfg=jtr.TrainConfig(lr=1e-3, microbatches=2),
+            schedule=JaxSchedule.linear(timesteps=n_t),
+            mesh=jmesh.make_mesh({"data": 4}, devices=jax.devices()[:4]),
+            total_steps=steps, log_interval=100, ckpt_dir=None, loss_aware=True, seed=3)
+    flat = {k: np.asarray(v) for k, v in
+            flax.traverse_util.flatten_dict(state.params, sep="/").items()}
+    sd = adm_params_from_flax(flat, tiny_test_config())
+    model = tiny_model(sd)
+    return {"step": int(state.step),
+            "params": {k: v.detach().numpy() for k, v in model.named_parameters()}}
+
+
+def _loop_table(batches, n_t, steps):
+    """The timesteps (every one twice in the first two steps, so the
+    resampler is warm from step 2) and JAX's noise of each step: microbatch
+    i of step s from fold_in(fold_in(fold_in(key(3), s), 1), i)."""
+    rng = np.random.default_rng(5)
+    b = batches[0].shape[0]
+    table = {("t", 0): np.arange(n_t), ("t", 1): np.arange(n_t)[::-1].copy()}
+    for s in range(2, steps):
+        table[("t", s)] = rng.integers(0, n_t, size=b)
+    for s in range(steps):
+        key = jax.random.fold_in(jax.random.fold_in(jax.random.key(3), s), 1)
+        for i in range(2):
+            table[(s, 1, i)] = JaxDraws(key).at_step(i).normal(
+                (b // 2,) + batches[0].shape[1:], device="cpu").numpy()
+    return table
+
+
 @pytest.fixture(scope="module")
 def ranks(pair):
     jm, params, tm = pair
@@ -203,11 +284,12 @@ def ranks(pair):
              tp_cfg=TP_CFG, tp_x0=tp_x0, tp_t=tp_t, tp_w=tp_w,
              tp_noise=[_noise(tp_key, 4, 1)],
              batches=[np.tanh(rng.normal(size=(8, 32, 32, 3))).astype(np.float32)
-                      for _ in range(2)], loop_steps=3,
+                      for _ in range(2)], loop_steps=3, loop_t_steps=8,
              gn_x=gn_x, gn_v=rng.normal(size=gn_x.shape).astype(np.float32),
              gn_u=rng.normal(size=gn_x.shape).astype(np.float32),
              gn_scale=rng.normal(size=(64,)).astype(np.float32),
              gn_bias=rng.normal(size=(64,)).astype(np.float32))
+    p["loop_table"] = _loop_table(p["batches"], p["loop_t_steps"], p["loop_steps"])
     ranks = Ranks(mesh_cases, p, world=4, timeout=150)   # the references meanwhile
     from _torch_dist_cases import loop_run
 
@@ -219,16 +301,18 @@ def ranks(pair):
         one_loop=loop_run(p, None),
         jax=_jax_steps(jm, params, x0, t, w, keys, CFG),
         jax_tp=_jax_steps(jm, params, tp_x0, tp_t, tp_w, [tp_key], TP_CFG),
+        jax_loop=_jax_loop(jm, params, p["batches"], p["loop_table"], p["loop_t_steps"],
+                           p["loop_steps"]),
         out=ranks.join())
 
 
-def _params_close(got, want, grads_small=0.02):
+def _params_close(got, want, grads_small=0.02, lr=CFG["lr"], steps=2):
     """Parameters within PARAM_ATOL except a few entries Adam's first
     sign-like steps moved apart (a gradient near 0 may take either sign):
     at most grads_small of them, each within 2 * lr * steps."""
     diffs = np.concatenate([np.abs(got[k] - want[k]).reshape(-1) for k in want])
     assert (diffs > PARAM_ATOL).mean() <= grads_small
-    assert diffs.max() <= 2 * CFG["lr"] * 2 + PARAM_ATOL
+    assert diffs.max() <= 2 * lr * steps + PARAM_ATOL
 
 
 def test_ranks_start_on_gloo(ranks):
@@ -255,6 +339,39 @@ def test_run_training_over_a_mesh_matches_one_process(ranks):
     for o in ranks["out"]:
         assert o["loop"]["step"] == ranks["one_loop"]["step"] == ranks["p"]["loop_steps"]
         assert _rel(o["loop"]["checksum"], ranks["one_loop"]["checksum"]) <= CHECKSUM_RTOL
+
+
+def test_run_training_over_a_mesh_matches_jax(ranks):
+    want = ranks["jax_loop"]
+    want_sum = float(checks.replicated_params_checksum(
+        {k: torch.from_numpy(v) for k, v in want["params"].items()}))
+    for o in ranks["out"]:
+        got = o["loop_jax"]
+        assert got["step"] == want["step"] == ranks["p"]["loop_steps"]
+        assert _rel(got["checksum"], want_sum) <= CHECKSUM_RTOL
+        _params_close(got["params"], want["params"], lr=1e-3, steps=3)
+
+
+def test_transport_fallback_moves_the_same_rows(ranks):
+    """Each rank's x is 1000 * rank + arange: the gather stacks every
+    rank's, the halo pads 2 rows above (the previous rank's last) and 1
+    below (the next rank's first), its transpose adds the halo rows back."""
+    w = len(ranks["out"])
+    xs = [np.arange(120, dtype=np.float32).reshape(2, 3, 4, 5) + 1000 * r for r in range(w)]
+    zero = np.zeros((2, 3, 1, 5), np.float32)
+    for r, o in enumerate(ranks["out"]):
+        above = xs[r - 1][:, :, 2:] if r > 0 else np.zeros((2, 3, 2, 5), np.float32)
+        below = xs[r + 1][:, :, :1] if r < w - 1 else zero
+        unpad = xs[r][:, :, 1:3].copy()
+        if r < w - 1:
+            unpad[:, :, -1:] += xs[r + 1][:, :, :1]       # the next rank's top halo
+        if r > 0:
+            unpad[:, :, :1] += xs[r - 1][:, :, 3:]        # the previous rank's bottom halo
+        want = {"gather": np.stack(xs), "unpad": unpad,
+                "pad": np.concatenate([above, xs[r], below], axis=2)}
+        for name in ("native", "fallback"):
+            for k, v in want.items():
+                np.testing.assert_array_equal(o["transport"][name][k], v, err_msg=f"{name} {k}")
 
 
 def test_tensor_parallel_step(ranks):
