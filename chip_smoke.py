@@ -1863,6 +1863,33 @@ def start_server(service):
     return srv, f"http://127.0.0.1:{srv.server_address[1]}"
 
 
+def trace_busy_share(path: str) -> dict:
+    """Read a utils/logger.py::device_trace Chrome trace: the window (its
+    TRACE_WINDOW annotation), the union of the card's kernel, copy and
+    memset intervals inside it, their ratio, and the program spans in it.
+    Times in ms; "events" counts the device events."""
+    from loco_edit_tpu_torch.utils.logger import TRACE_WINDOW
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    win = [e for e in events if e.get("name") == TRACE_WINDOW and e.get("ph") == "X"]
+    w0 = min(float(e["ts"]) for e in win)
+    w1 = max(float(e["ts"]) + float(e["dur"]) for e in win)
+    spans = sorted((max(float(e["ts"]), w0), min(float(e["ts"]) + float(e.get("dur", 0)), w1))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    spans = [s for s in spans if s[1] > s[0]]
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    window_ms, busy_ms = (w1 - w0) / 1e3, busy / 1e3
+    return {"window_ms": window_ms, "busy_ms": busy_ms,
+            "share": busy_ms / window_ms if window_ms > 0 else 0.0, "events": len(spans),
+            "spans": sum(e.get("cat") == "loco_span" for e in events)}
+
+
 def served(tag, what, url, payload, model_classes, per_forward, predicted_fwd, svc):
     """One request on the main path (run_main_path's counts), its forwards and
     launches held to predicted_fwd x per_forward; prints the host seconds,
@@ -1932,7 +1959,7 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
     from loco_edit_tpu_torch.serve import EditService
     from loco_edit_tpu_torch.utils import metrics
     from loco_edit_tpu_torch.utils.io import to_uint8
-    from loco_edit_tpu_torch.utils.logger import device_busy_share, device_trace
+    from loco_edit_tpu_torch.utils.logger import device_trace
     from loco_edit_tpu_torch.utils.lpips import LPIPSMetric
 
     tag = "13 serve p2"
@@ -2081,14 +2108,16 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
                                       (ADMUNet,), P2_PER_FWD, cached, svc)
         add_launches(total, launches)
         path = os.path.join(trace_dir, "trace.json")
-        busy = device_busy_share(path)
+        busy = trace_busy_share(path)
         log(f"[{tag}] device trace of one served /edit (cached basis): window "
             f"{busy['window_ms']:.1f} ms, device busy {busy['busy_ms']:.1f} ms in "
             f"{busy['events']} kernel/copy events: busy share {busy['share']:.3f}, idle "
-            f"{1 - busy['share']:.3f}; server secs {traced['secs']}; trace "
-            f"{os.path.getsize(path) / 2 ** 20:.1f} MiB")
+            f"{1 - busy['share']:.3f}; {busy['spans']} program spans; server secs "
+            f"{traced['secs']}; trace {os.path.getsize(path) / 2 ** 20:.1f} MiB")
         if device == "cuda" and not (busy["events"] > 0 and 0 < busy["share"] <= 1):
             fail(f"{tag}: the device trace holds no device work: {busy}")
+        if busy["spans"] == 0:
+            fail(f"{tag}: the device trace holds no program span")
     finally:
         srv.shutdown()
         srv.server_close()

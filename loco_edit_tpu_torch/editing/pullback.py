@@ -23,6 +23,9 @@ How the JAX package's transforms map onto torch.func:
     the same Gram eigh on the same bits, so every rank holds the basis.
   - The convergence early exit is a host loop that reads the movement of the
     iterate once min_iter sweeps have run.
+  - Each pass of either loop is a `sweep` span with its device time; the
+    convergence read and the eigh (which waits for the card) are readbacks
+    (utils/logger.py).
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from typing import Callable
 
 import torch
 
+from loco_edit_tpu_torch.core.device import to_device
 from loco_edit_tpu_torch.parallel.collectives import gather_stack
+from loco_edit_tpu_torch.utils.logger import readback, span
 
 
 @dataclasses.dataclass
@@ -107,7 +112,8 @@ def _gram_update(vp: torch.Tensor, v: torch.Tensor):
     """One Gram step on (..., R, d) f32 cotangent images: new orthonormal
     iterate (sign-aligned to v) and singular values of vp, descending."""
     gram = vp @ vp.transpose(-1, -2)
-    w, q = torch.linalg.eigh(gram)                     # ascending
+    with readback():          # on a card, eigh waits for it (its error check)
+        w, q = torch.linalg.eigh(gram)                 # ascending
     w, q = w.flip(-1), q.flip(-1)
     s_vp = torch.sqrt(torch.clamp(w, min=0.0))
     v_new = (q.transpose(-1, -2) @ vp) / torch.clamp(s_vp, min=1e-20)[..., None]
@@ -118,7 +124,10 @@ def _gram_update(vp: torch.Tensor, v: torch.Tensor):
 def _keep_going(i: int, conv, min_iter: int, max_iter: int, tol: float) -> bool:
     if i >= max_iter:
         return False
-    return i <= min_iter or float(conv) > tol
+    if i <= min_iter:
+        return True
+    with readback():
+        return float(conv) > tol
 
 
 def subspace_iteration(
@@ -171,15 +180,16 @@ def subspace_iteration(
         v = init_probes(rng, r_eff, d_in, x.device)
     i, conv, u, s_vp = 0, float("inf"), None, None
     while _keep_going(i, conv, min_iter, max_iter, tol):
-        if probe_mesh is None:
-            u = _map_chunks(one_u, (v,), probe_chunk)      # u = J v
-            vp = _map_chunks(one_v, (u,), probe_chunk)     # vp = u^T J
-        else:                                              # this rank's share
-            u = _map_chunks(one_u, (v[lo:hi],), probe_chunk) if hi > lo else None
-            vp_loc = _map_chunks(one_v, (u,), probe_chunk) if hi > lo else None
-            vp = _gather_rows(vp_loc, r_eff, per, vrow, probe_mesh)
-        v_new, s_vp = _gram_update(vp, v)
-        conv = (v_new[:rank] - v[:rank]).abs().max()
+        with span("sweep", device=x.is_cuda):
+            if probe_mesh is None:
+                u = _map_chunks(one_u, (v,), probe_chunk)      # u = J v
+                vp = _map_chunks(one_v, (u,), probe_chunk)     # vp = u^T J
+            else:                                              # this rank's share
+                u = _map_chunks(one_u, (v[lo:hi],), probe_chunk) if hi > lo else None
+                vp_loc = _map_chunks(one_v, (u,), probe_chunk) if hi > lo else None
+                vp = _gather_rows(vp_loc, r_eff, per, vrow, probe_mesh)
+            v_new, s_vp = _gram_update(vp, v)
+            conv = (v_new[:rank] - v[:rank]).abs().max()
         v, i = v_new, i + 1
     if probe_mesh is not None:
         u = _gather_rows(u, r_eff, per, y0, probe_mesh)
@@ -240,25 +250,26 @@ def dual_subspace_iteration(
     else:
         v = torch.stack([init_probes(rng_a, R, d_in, x.device),
                          init_probes(rng_b, R, d_in, x.device)])
-    row_w = torch.stack([(torch.arange(R) < rank_a), (torch.arange(R) < rank_b)]
-                        ).float().to(x.device)
+    row_w = to_device(torch.stack([(torch.arange(R) < rank_a), (torch.arange(R) < rank_b)]),
+                      x.device)
     if probe_mesh is not None:
         lo, hi, per = _probe_share(2 * R, probe_mesh)
         vrow = x.new_zeros((d_in,), dtype=torch.float32)
     i, conv, u, s_vp = 0, float("inf"), None, None
     while _keep_going(i, conv, min_iter, max_iter, tol):
-        v_flat = v.reshape(2 * R, d_in)
-        if probe_mesh is None:
-            u = _map_chunks(one_u, (v_flat, m_flat), probe_chunk)
-            vp = _map_chunks(one_v, (u, m_flat), probe_chunk)
-        else:                                              # this rank's share
-            u = (_map_chunks(one_u, (v_flat[lo:hi], m_flat[lo:hi]), probe_chunk)
-                 if hi > lo else None)
-            vp_loc = (_map_chunks(one_v, (u, m_flat[lo:hi]), probe_chunk)
-                      if hi > lo else None)
-            vp = _gather_rows(vp_loc, 2 * R, per, vrow, probe_mesh)
-        v_new, s_vp = _gram_update(vp.reshape(2, R, d_in), v)
-        conv = ((v_new - v).abs() * row_w[..., None]).max()
+        with span("sweep", device=x.is_cuda):
+            v_flat = v.reshape(2 * R, d_in)
+            if probe_mesh is None:
+                u = _map_chunks(one_u, (v_flat, m_flat), probe_chunk)
+                vp = _map_chunks(one_v, (u, m_flat), probe_chunk)
+            else:                                              # this rank's share
+                u = (_map_chunks(one_u, (v_flat[lo:hi], m_flat[lo:hi]), probe_chunk)
+                     if hi > lo else None)
+                vp_loc = (_map_chunks(one_v, (u, m_flat[lo:hi]), probe_chunk)
+                          if hi > lo else None)
+                vp = _gather_rows(vp_loc, 2 * R, per, vrow, probe_mesh)
+            v_new, s_vp = _gram_update(vp.reshape(2, R, d_in), v)
+            conv = ((v_new - v).abs() * row_w[..., None]).max()
         v, i = v_new, i + 1
     if probe_mesh is not None:
         u = _gather_rows(u, 2 * R, per, y0, probe_mesh)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from loco_edit_tpu_torch.core.device import to_device
+
 
 def _subsample_indices(length: int, vis_num: int) -> np.ndarray:
     """[0, -1] when vis_num == 1, else a stride slice [::len // vis_num]."""
@@ -30,8 +32,7 @@ def x_space_guidance_strip(xt: torch.Tensor, vk: torch.Tensor, *,
     vk = vk.reshape(xt.shape[1:]).to(xt.dtype)
     ks = (torch.arange(0, num_steps + 1, dtype=xt.dtype, device=xt.device)
           * (scale * edit_step))
-    idx = torch.as_tensor(_subsample_indices(num_steps + 1, vis_num),
-                          device=xt.device)
+    idx = to_device(_subsample_indices(num_steps + 1, vis_num), xt.device, torch.long)
     pos = (xt + ks[:, None, None, None] * vk[None])[idx]
     neg = (xt - ks[:, None, None, None] * vk[None])[idx]
     return torch.cat([neg.flip(0)[:-1], pos], dim=0)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from loco_edit_tpu_torch.core.device import to_device
 from loco_edit_tpu_torch.models.adm.config import (
     ADMConfig,
     ADMLayout,
@@ -223,7 +224,7 @@ class ADMUNet(nn.Module):
         (out,) + (h_mid,), out itself a tuple with return_sigma."""
         cfg = self.cfg
         b = x.shape[0]
-        t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
+        t = to_device(t, x.device)
         t = torch.broadcast_to(t.reshape(-1), (b,))
         emb = self.time_dense1(F.silu(self.time_dense0(
             timestep_embedding(t, cfg.model_channels))))

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from loco_edit_tpu_torch.core.device import to_device
 from loco_edit_tpu_torch.models.adm.unet import timestep_embedding
 from loco_edit_tpu_torch.models.base import init_random_weights_
 from loco_edit_tpu_torch.models.sd.config import SDUNetConfig, check_no_remat
@@ -238,7 +239,7 @@ class SDUNet(nn.Module):
     def forward(self, x, t, context, w=None):
         cfg = self.cfg
         b = x.shape[0]
-        t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
+        t = to_device(t, x.device)
         t = torch.broadcast_to(t.reshape(-1), (b,))
         context = torch.broadcast_to(
             context, (b,) + tuple(context.shape[-2:])).to(cfg.dtype)
@@ -249,7 +250,7 @@ class SDUNet(nn.Module):
                 raise ValueError("this UNet is guidance-embedding conditioned; pass w")
             from loco_edit_tpu_torch.models.ddpm.unet import ddpm_timestep_embedding
 
-            w = torch.as_tensor(w, dtype=torch.float32, device=x.device)
+            w = to_device(w, x.device)
             w_emb = ddpm_timestep_embedding(
                 torch.broadcast_to(w.reshape(-1), (b,)) * 1000.0,
                 cfg.time_cond_proj_dim)

@@ -7,7 +7,8 @@
   - Memory-bound chunking: big frame batches are denoised in chunks of
     cfg.memory_bound frames (0 = one batch).
   - Phase timings: wall time per pipeline phase, each ended by a device
-    synchronize.
+    synchronize; each phase is a program span (utils/logger.py), and every
+    wait of the host for the card a `readback` span.
   - Walk strips of every principal component concatenated into one frame
     batch, and split back.
   - Mesh axes over torch.distributed ranks (core/mesh.py): --mesh_probe
@@ -18,18 +19,19 @@
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import numpy as np
 import torch
 
+from loco_edit_tpu_torch.core.device import to_device
 from loco_edit_tpu_torch.core.mesh import (DATA_AXIS, PROBE_AXIS, is_main_process,
                                            make_mesh, world_size)
 from loco_edit_tpu_torch.core.rng import RowWindow
 from loco_edit_tpu_torch.parallel.collectives import gather_cat
 from loco_edit_tpu_torch.utils.chunk import map_chunked
+from loco_edit_tpu_torch.utils.logger import Span, readback, resolve_device_times
 
 
 class EngineExec:
@@ -38,6 +40,11 @@ class EngineExec:
     `self.cfg` with optional `memory_bound`, `mesh_probe` and `mesh_data`
     fields; every helper is a one-rank no-op when a field is absent or at most 1.
     State is created lazily so engines need no __init__ cooperation."""
+
+    def _tensor(self, x) -> torch.Tensor:
+        """x as a float32 tensor on the engine's device."""
+        return to_device(x if isinstance(x, torch.Tensor) else np.asarray(x, np.float32),
+                         self.device)
 
     def _submit_io(self, fn, *args, **kw):
         if not is_main_process():
@@ -122,24 +129,28 @@ class EngineExec:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """t on the host: the one way the engines read a tensor back."""
+    with readback():
+        return t.detach().cpu().numpy()
 
 
-class _Phase:
+class _Phase(Span):
     """Wall time of one pipeline phase, ended by a device synchronize so the
-    device work is inside it; accumulates into timings[name]."""
+    device work is inside it; accumulates into timings[name]. A span of
+    its own name; the synchronize is a readback, after which the phase's
+    sweeps get their device times."""
 
     def __init__(self, timings: dict, name: str, device: torch.device):
-        self.timings, self.name, self.device = timings, name, device
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
+        super().__init__(name)
+        self.timings, self.dev = timings, device
 
     def __exit__(self, *exc):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timings[self.name] = (self.timings.get(self.name, 0.0)
-                                   + time.perf_counter() - self.t0)
+        if self.dev.type == "cuda":
+            with readback():
+                torch.cuda.synchronize(self.dev)
+            resolve_device_times()
+        super().__exit__(*exc)
+        self.timings[self.name] = self.timings.get(self.name, 0.0) + self.seconds
 
 
 def concat_pc_strips(xt: torch.Tensor, vT: torch.Tensor, n_pc: int, *, scale: float,

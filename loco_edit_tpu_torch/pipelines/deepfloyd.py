@@ -110,11 +110,6 @@ class IFEditPipeline(EngineExec):
         self.timings: dict[str, float] = {}
         os.makedirs(cfg.result_folder, exist_ok=True)
 
-    def _tensor(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device, torch.float32)
-        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-
     def emb(self, prompt: str) -> torch.Tensor:
         if prompt not in self._emb_cache:
             self._emb_cache[prompt] = self._tensor(self.prompt_encoder(prompt))

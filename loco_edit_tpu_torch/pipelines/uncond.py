@@ -102,11 +102,6 @@ class UncondEditPipeline(EngineExec):
         self.timings: dict[str, float] = {}
         os.makedirs(cfg.result_folder, exist_ok=True)
 
-    def _tensor(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device, torch.float32)
-        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-
     @torch.no_grad()
     def invert(self, x0) -> torch.Tensor:
         return ddim_invert(self.denoiser.eps_fn, self._tensor(x0), self.inv_grid,

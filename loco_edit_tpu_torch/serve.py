@@ -48,6 +48,10 @@ interchangeable:
                 port's SAM on the server's device: masks/sam.py)
   GET  /health  -> {"ok": true, "engine": "...", "edits_served": n}
 
+Each POST is a `request` span (utils/logger.py; recorded only while the
+recorder is on) and the locked edit inside it a `request.edit` span, whose
+clock reads give the response's "secs".
+
 A "seed" names x_T (z_T) through core/rng.py::RngStream.from_seed(seed) on
 the pipeline's device: the same seed names a different x_T here than on
 the JAX server (jax.random.normal). Post "image" (uncond, IF) for inputs
@@ -66,10 +70,11 @@ import contextlib
 import json
 import os
 import threading
-import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from loco_edit_tpu_torch.utils.logger import REQUEST, Span, span
 
 
 def _b64(a) -> str:
@@ -155,6 +160,7 @@ class EditService:
 
     def _resolve_input(self, req: dict):
         from loco_edit_tpu_torch.core.rng import RngStream
+        from loco_edit_tpu_torch.pipelines.common import _host
 
         h, w, c = self.sample_shape
         if "image" in req and req["image"]:
@@ -165,7 +171,7 @@ class EditService:
             return x0, None
         seed = int(req.get("seed", 0))
         xT = RngStream.from_seed(seed).normal((1, h, w, c), device=self.pipe.device)
-        return None, xT.cpu().numpy()
+        return None, _host(xT)
 
     def _bbox_mask(self, req: dict) -> np.ndarray | None:
         """Boolean mask from a [y0, y1, x0, x1] bbox in the engine's mask
@@ -261,8 +267,7 @@ class EditService:
         _, zT = self._resolve_input(req)
         rank = int(req.get("pca_rank") or self.pipe.cfg.pca_rank)
         name = self._cache_name(req, rank)
-        with self.lock:
-            t0 = time.perf_counter()
+        with self.lock, Span("request.edit") as timed:
             nsp = (self.pipe.cfg.null_space_projection and mask is not None)
             with self._cfg_overrides(**self._t2i_overrides(px, rank, nsp, semantic)):
                 if self.engine == "sd":
@@ -280,10 +285,9 @@ class EditService:
                         for_prompt, edit_prompt, xT=zT, mask=mask,
                         sample_name=name, semantic=semantic)
                     strips = {0: out["image"]}
-            secs = time.perf_counter() - t0
             self.edits_served += 1
         return {**self._strip_payload(strips),
-                "null_space_projection": nsp, "secs": round(secs, 3)}
+                "null_space_projection": nsp, "secs": round(timed.seconds, 3)}
 
     def edit(self, req: dict) -> dict:
         if self.engine != "uncond":
@@ -293,8 +297,7 @@ class EditService:
         px = self._pixel_flag(req)
         rank = int(req.get("pca_rank") or self.pipe.cfg.pca_rank)
         name = self._cache_name(req, rank)
-        with self.lock:
-            t0 = time.perf_counter()
+        with self.lock, Span("request.edit") as timed:
             # API contract: one strip per requested principal component;
             # null-space projection needs a mask, and maskless requests fall
             # back to the unprojected basis (signalled in the response)
@@ -304,10 +307,9 @@ class EditService:
                     null_space_projection=nsp):
                 out = self.pipe.run_edit_null_space_projection(
                     x0=x0, xT=xT, mask=mask, sample_name=name)
-            secs = time.perf_counter() - t0
             self.edits_served += 1
         return {**self._strip_payload(out["strips"]),
-                "null_space_projection": nsp, "secs": round(secs, 3)}
+                "null_space_projection": nsp, "secs": round(timed.seconds, 3)}
 
     def edit_batch(self, req: dict) -> dict:
         """Throughput form: resolve every item, then run ONE batched
@@ -353,31 +355,30 @@ class EditService:
             return self._edit_batch_t2i(req, xTs, masks, names, all_masked,
                                         px, rank)
 
-        with self.lock:
-            t0 = time.perf_counter()
+        from loco_edit_tpu_torch.pipelines.common import _host
+
+        with self.lock, Span("request.edit") as timed:
             nsp = self.pipe.cfg.null_space_projection and all_masked
             with self._cfg_overrides(
                     pixel_output=px, pca_rank=rank, vis_num_pc=rank,
                     null_space_projection=nsp):
                 if img_rows:   # ONE inversion for every image item
                     inv = self.pipe.invert(np.stack(img_stack).astype(np.float32))
-                    xTs[img_rows] = inv.cpu().numpy()
+                    xTs[img_rows] = _host(inv)
                 results = self.pipe.run_edit_batch(
                     xTs=xTs, masks=masks, sample_names=names)
-            secs = time.perf_counter() - t0
             self.edits_served += n
         return {"results": [
                     {**self._strip_payload(r["strips"]),
                      "null_space_projection": nsp} for r in results],
-                "null_space_projection": nsp, "secs": round(secs, 3)}
+                "null_space_projection": nsp, "secs": round(timed.seconds, 3)}
 
     def _edit_batch_t2i(self, req, zTs, masks, names, all_masked, px, rank):
         """SD/LCM throughput form: ONE batched generation runs every seed to
         the edit step (pipelines/{sd,lcm}.py run_edit_batch)."""
         for_prompt, edit_prompt = self._t2i_prompts(req)
         semantic = self._semantic_flag(req)
-        with self.lock:
-            t0 = time.perf_counter()
+        with self.lock, Span("request.edit") as timed:
             nsp = self.pipe.cfg.null_space_projection and all_masked
             with self._cfg_overrides(**self._t2i_overrides(px, rank, nsp, semantic)):
                 if self.engine == "sd":
@@ -390,12 +391,13 @@ class EditService:
                         for_prompt, edit_prompt, zTs=zTs, masks=masks,
                         sample_names=names)
                     payloads = [self._strip_payload({0: r["image"]}) for r in results]
-            secs = time.perf_counter() - t0
             self.edits_served += len(names)
         return {"results": [{**p, "null_space_projection": nsp} for p in payloads],
-                "null_space_projection": nsp, "secs": round(secs, 3)}
+                "null_space_projection": nsp, "secs": round(timed.seconds, 3)}
 
     def invert(self, req: dict) -> dict:
+        from loco_edit_tpu_torch.pipelines.common import _host
+
         if self.engine in ("lcm", "if"):
             raise ValueError(f"the {self.engine} engine has no inversion "
                              "path (reference parity)")
@@ -409,7 +411,7 @@ class EditService:
             refine = ({"inv_refine_steps": int(req["refine_steps"])}
                       if "refine_steps" in req else {})
             with self._cfg_overrides(**refine):
-                xT = self.pipe.invert(x0).cpu().numpy()
+                xT = _host(self.pipe.invert(x0))
         return {"xT": _b64(xT), "shape": list(xT.shape)}
 
     def segment(self, req: dict) -> dict:
@@ -447,7 +449,9 @@ def make_server(service: EditService, port: int = 8787) -> ThreadingHTTPServer:
     process-wide and hold in every handler."""
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, payload: dict):
-            body = json.dumps(payload).encode()
+            self._send_body(code, json.dumps(payload).encode())
+
+        def _send_body(self, code: int, body: bytes):
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
@@ -460,20 +464,29 @@ def make_server(service: EditService, port: int = 8787) -> ThreadingHTTPServer:
             return self._send(404, {"error": "unknown path"})
 
         def do_POST(self):
+            # the span closes before the answer is written, so a client
+            # that has the answer finds the request recorded
+            with span(REQUEST, route=self.path):
+                code, body = self._answer()
+            self._send_body(code, body)
+
+        def _answer(self) -> tuple[int, bytes]:
             n = int(self.headers.get("Content-Length", 0))
             try:
                 req = json.loads(self.rfile.read(n) or b"{}")
                 if self.path == "/edit":
-                    return self._send(200, service.edit(req))
-                if self.path == "/edit_batch":
-                    return self._send(200, service.edit_batch(req))
-                if self.path == "/invert":
-                    return self._send(200, service.invert(req))
-                if self.path == "/segment":
-                    return self._send(200, service.segment(req))
-                return self._send(404, {"error": "unknown path"})
+                    code, payload = 200, service.edit(req)
+                elif self.path == "/edit_batch":
+                    code, payload = 200, service.edit_batch(req)
+                elif self.path == "/invert":
+                    code, payload = 200, service.invert(req)
+                elif self.path == "/segment":
+                    code, payload = 200, service.segment(req)
+                else:
+                    code, payload = 404, {"error": "unknown path"}
+                return code, json.dumps(payload).encode()
             except Exception as e:  # noqa: BLE001: report, keep serving
-                return self._send(500, {"error": str(e)})
+                return 500, json.dumps({"error": str(e)}).encode()
 
         def log_message(self, *a):  # quiet
             pass

@@ -5,27 +5,40 @@ dumpkvs), a human-readable stdout table, JSONL and CSV writers (and
 TensorBoard through tensorboardX when asked for), and wall-time profile
 scopes, writing the same files as the JAX package's Logger.
 
+Program spans: named, nested regions of a served edit (a request, its
+phases, the subspace iteration's sweeps, every wait of the host for the
+card), each stamped with time.time_ns() at entry and exit, the clock
+torch.profiler stamps its events with, so spans line up with a device
+trace. The recorder is off by default; then `span()` is one flag check
+that returns a shared null context. `start_recording()` turns it on and
+`stop_recording()` turns it off and hands over what it kept (a
+`Recording`: the spans and, per request, the counters of `count()`).
+Nothing is written while it records.
+
 `device_trace(log_dir)` is the counterpart of the JAX package's
 `tpu_trace`: a torch.profiler trace of the enclosed work (CPU activity,
 plus CUDA activity when the card is used) written as a Chrome trace to
-`log_dir/trace.json`. `device_busy_share(path)` reads such a trace back:
-the share of the traced window in which a kernel or a copy ran on the card.
+`log_dir/trace.json`, with the spans recorded in its window on a track of
+their own.
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import itertools
 import json
 import os
+import threading
 import time
 from collections import defaultdict
+from dataclasses import dataclass, field
 from typing import Any
 
 # the user annotation that spans a device_trace window in its trace
 TRACE_WINDOW = "loco_device_trace"
-# Chrome-trace categories of device work (kernels, copies, memsets)
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# the root span of one served request; every span below it carries its id
+REQUEST = "request"
 
 
 class Logger:
@@ -115,13 +128,194 @@ class Logger:
             self._prof[name] += time.perf_counter() - t0
 
 
+# -- program spans -------------------------------------------------------------
+
+_ON = False                      # the recorder's one flag
+_REC: Recording | None = None    # what it keeps while on
+_LOCK = threading.Lock()
+_IDS = itertools.count(1)
+_STACK = threading.local()       # .open: this thread's open spans, innermost last
+
+
+@dataclass
+class SpanRecord:
+    """One recorded span. parent: the id of the innermost span open on the
+    same thread at entry (None at a root); request: the id of the REQUEST
+    span it lies in (None outside one); t0_ns/t1_ns: time.time_ns();
+    device_ms: the device time between the span's CUDA events (spans
+    opened with device=True on a card), resolved after a synchronize."""
+    name: str
+    id: int
+    parent: int | None
+    request: int | None         # a REQUEST span's own id
+    thread: int
+    t0_ns: int = 0
+    t1_ns: int = 0
+    device_ms: float | None = None
+    attrs: dict = field(default_factory=dict)
+
+    @property
+    def seconds(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e9
+
+
+@dataclass
+class Recording:
+    """What the recorder kept: the closed spans in closing order, and the
+    counters by request id (None: counted outside a request)."""
+    spans: list = field(default_factory=list)
+    counts: dict = field(default_factory=dict)
+    pending: list = field(default_factory=list)   # (record, start, end) CUDA events
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL = _NullSpan()
+
+
+def _open_spans() -> list:
+    st = _STACK.__dict__.get("open")
+    if st is None:
+        st = _STACK.open = []
+    return st
+
+
+class Span:
+    """A timed region: time.time_ns() at entry and exit, always (`seconds`
+    reads them); recorded while the recorder is on. device=True adds a
+    timed CUDA event pair on the current stream, no synchronize."""
+
+    def __init__(self, name: str, device: bool = False, **attrs):
+        self.name, self.device, self.attrs = name, device, attrs
+        self.t0_ns = self.t1_ns = 0
+        self._rec = None
+
+    def __enter__(self):
+        if _ON:
+            st = _open_spans()
+            parent = st[-1] if st else None
+            sid = next(_IDS)
+            req = sid if self.name == REQUEST else parent.request if parent else None
+            self._rec = SpanRecord(self.name, sid, parent.id if parent else None, req,
+                                   threading.get_ident(), attrs=self.attrs)
+            self._into = _REC
+            st.append(self._rec)
+            if self.device:
+                import torch
+
+                self._events = [torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True)]
+                self._events[0].record()
+        self.t0_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self._rec
+        if rec is not None and self.device:
+            self._events[1].record()
+        self.t1_ns = time.time_ns()
+        if rec is not None:
+            self._rec = None
+            rec.t0_ns, rec.t1_ns = self.t0_ns, self.t1_ns
+            st = _open_spans()
+            if rec in st:
+                del st[st.index(rec):]
+            with _LOCK:
+                if self._into is not None and self._into is _REC:
+                    _REC.spans.append(rec)
+                    if self.device:
+                        _REC.pending.append((rec, *self._events))
+        return False
+
+    @property
+    def seconds(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e9
+
+
+def span(name: str, device: bool = False, **attrs):
+    """A Span while the recorder is on, else the shared null context."""
+    return Span(name, device, **attrs) if _ON else _NULL
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` of the request this thread is in."""
+    if not _ON:
+        return
+    st = _open_spans()
+    req = st[-1].request if st else None
+    with _LOCK:
+        if _REC is not None:
+            c = _REC.counts.setdefault(req, {})
+            c[name] = c.get(name, 0) + n
+
+
+def readback():
+    """Around a wait of the host for the card (a copy to the host, a copy
+    from pageable host memory, a synchronize): a `readback` span, and one
+    on the `readbacks` counter."""
+    if not _ON:
+        return _NULL
+    count("readbacks")
+    return Span("readback")
+
+
+def resolve_device_times() -> None:
+    """Turn the device=True spans' finished CUDA event pairs into
+    device_ms. Waits for nothing: call it after a synchronize."""
+    if not _ON:
+        return
+    with _LOCK:
+        pending = _REC.pending if _REC is not None else []
+        left = []
+        for rec, e0, e1 in pending:
+            if e1.query():
+                rec.device_ms = e0.elapsed_time(e1)
+            else:
+                left.append((rec, e0, e1))
+        pending[:] = left
+
+
+def start_recording() -> None:
+    """Turn the recorder on with nothing kept."""
+    global _ON, _REC
+    with _LOCK:
+        _REC = Recording()
+    _ON = True
+
+
+def stop_recording() -> Recording:
+    """Turn the recorder off; returns what it kept (an empty Recording when
+    it was off)."""
+    global _ON, _REC
+    resolve_device_times()
+    _ON = False
+    with _LOCK:
+        rec, _REC = _REC or Recording(), None
+    rec.pending = []
+    return rec
+
+
+def recording() -> bool:
+    """Whether the recorder is on."""
+    return _ON
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str, cuda: bool | None = None):
     """Trace the enclosed work with torch.profiler and write it as a Chrome
     trace to log_dir/trace.json (view it in Perfetto or chrome://tracing).
     CPU activity always; CUDA activity when `cuda` (default: a card is
-    present). The window is marked by a TRACE_WINDOW annotation. Yields the
-    profiler."""
+    present). The window is marked by a TRACE_WINDOW annotation; the
+    recorder is on inside it, and its spans are added to the trace on a
+    track of their own ("loco spans"). Yields the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -130,39 +324,37 @@ def device_trace(log_dir: str, cuda: bool | None = None):
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        with record_function(TRACE_WINDOW):
-            yield prof
-        if cuda:
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        start_recording()
+        try:
+            with record_function(TRACE_WINDOW):
+                yield prof
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            rec = stop_recording()
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    add_spans_to_trace(path, rec.spans)
 
 
-def _union_ms(spans: list[tuple[float, float]]) -> float:
-    total, end = 0.0, float("-inf")
-    for t0, t1 in sorted(spans):
-        if t1 > end:
-            total += t1 - max(t0, end)
-            end = t1
-    return total / 1e3
-
-
-def device_busy_share(trace_path: str) -> dict:
-    """Read a device_trace Chrome trace: the traced window (the TRACE_WINDOW
-    annotation on the host), the union of the device's kernel, copy and
-    memset intervals inside it, and their ratio. Times in ms; "events"
-    counts the device events."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    win = [e for e in events if e.get("name") == TRACE_WINDOW and e.get("ph") == "X"]
-    if not win:
-        raise ValueError(f"{trace_path}: no {TRACE_WINDOW} window")
-    w0 = min(float(e["ts"]) for e in win)
-    w1 = max(float(e["ts"]) + float(e["dur"]) for e in win)
-    spans = [(max(float(e["ts"]), w0), min(float(e["ts"]) + float(e.get("dur", 0)), w1))
-             for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
-    spans = [s for s in spans if s[1] > s[0]]
-    window_ms = (w1 - w0) / 1e3
-    busy_ms = _union_ms(spans)
-    return {"window_ms": window_ms, "busy_ms": busy_ms,
-            "share": busy_ms / window_ms if window_ms > 0 else 0.0,
-            "events": len(spans)}
+def add_spans_to_trace(path: str, spans: list) -> None:
+    """Append spans to a Chrome trace as complete events of their own
+    process ("loco spans", one track per thread), on the trace's time base
+    (microseconds after its baseTimeNanoseconds)."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid = 1 + max((e["pid"] for e in events if isinstance(e.get("pid"), int)),
+                  default=0)
+    events.append({"ph": "M", "name": "process_name", "pid": pid,
+                   "args": {"name": "loco spans"}})
+    for s in spans:
+        args = {"id": s.id, "parent": s.parent, "request": s.request, **s.attrs}
+        if s.device_ms is not None:
+            args["device_ms"] = s.device_ms
+        events.append({"ph": "X", "cat": "loco_span", "name": s.name, "pid": pid,
+                       "tid": s.thread, "ts": (s.t0_ns - base) / 1e3,
+                       "dur": (s.t1_ns - s.t0_ns) / 1e3, "args": args})
+    with open(path, "w") as f:
+        json.dump(trace, f)

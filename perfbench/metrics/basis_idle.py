@@ -1,0 +1,12 @@
+"""basis_idle (layer: edit algebra, editing/{pullback,nullspace,walk}.py: the masked-Jacobian bases and their projection): the share of the window's
+`basis` spans' time (pipelines/common.py::_Phase, a program span) in which
+no kernel, copy or memset ran on the card (the traced window's merged device
+intervals), in percent (perfbench/spans.py)."""
+
+from perfbench import spans
+
+UNIT = "%"
+
+
+def read(run):
+    return spans.idle_share(run, "basis")

@@ -1,0 +1,12 @@
+"""generate_idle (layer: sampling, diffusion/{sampling,lcm}.py: generation from x_T (z_T) to the edit step): the share of the window's
+`generate` spans' time (pipelines/common.py::_Phase, a program span) in which
+no kernel, copy or memset ran on the card (the traced window's merged device
+intervals), in percent (perfbench/spans.py)."""
+
+from perfbench import spans
+
+UNIT = "%"
+
+
+def read(run):
+    return spans.idle_share(run, "generate")

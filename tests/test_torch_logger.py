@@ -1,6 +1,6 @@
 """The port's observability and eval entry points on the CPU: the Logger's
 files against the JAX package's for one key-value sequence, device_trace
-and its busy-share reader, the CLI's --trace_dir run, and the parity_eval
+with the program's spans in it, the CLI's --trace_dir run, and the parity_eval
 dry run (TinyTest, Random, a box mask) with the JAX package's report
 fields."""
 
@@ -60,19 +60,36 @@ def test_logger_writes_the_jax_files(tmp_path, capsys):
 
 
 def test_device_trace_on_the_cpu(tmp_path):
-    """A Chrome trace of the enclosed CPU work with its window annotation;
-    no device events on the CPU, so a busy share of 0."""
-    from loco_edit_tpu_torch.utils.logger import TRACE_WINDOW, device_busy_share, device_trace
+    """A Chrome trace of the enclosed CPU work: its window annotation, and
+    the program's spans on a track of their own, on the trace's time base:
+    each encloses the aten:: ops run inside it (to 0.2 ms, the clocks'
+    agreement in tests/test_torch_spans.py)."""
+    from loco_edit_tpu_torch.utils.logger import TRACE_WINDOW, device_trace, recording, span
 
     with device_trace(str(tmp_path / "tr"), cuda=False):
-        a = torch.randn(64, 64)
-        (a @ a).relu().sum()
-    path = tmp_path / "tr" / "trace.json"
-    events = json.load(open(path))["traceEvents"]
-    names = {e.get("name") for e in events}
-    assert TRACE_WINDOW in names and any(n and n.startswith("aten::") for n in names)
-    share = device_busy_share(str(path))
-    assert share["window_ms"] > 0 and share["events"] == 0 and share["share"] == 0.0
+        with span("outer"):
+            a = torch.randn(64, 64)
+            with span("inner"):
+                (a @ a).relu().sum()
+    assert not recording()
+    events = json.load(open(tmp_path / "tr" / "trace.json"))["traceEvents"]
+    (window,) = [e for e in events if e.get("name") == TRACE_WINDOW]
+    spans = {e["name"]: e for e in events if e.get("cat") == "loco_span"}
+    assert set(spans) == {"outer", "inner"}
+    tracks = {e["pid"]: e["args"]["name"] for e in events
+              if e.get("ph") == "M" and e.get("name") == "process_name"}
+    assert tracks[spans["outer"]["pid"]] == "loco spans"
+    assert spans["inner"]["args"]["parent"] == spans["outer"]["args"]["id"]
+
+    def within(e, s, slack_us=200.0):
+        return (s["ts"] - slack_us <= e["ts"]
+                and e["ts"] + e["dur"] <= s["ts"] + s["dur"] + slack_us)
+
+    ops = {n: [e for e in events if e.get("name") == n] for n in ("aten::randn", "aten::mm")}
+    assert ops["aten::randn"] and ops["aten::mm"]
+    assert all(within(e, spans["outer"]) for e in ops["aten::randn"])
+    assert all(within(e, spans["inner"]) for e in ops["aten::mm"])
+    assert within(spans["outer"], window)
 
 
 def test_cli_trace_dir_run(tmp_path):
