@@ -1945,7 +1945,8 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
     basis, the same bits), /edit_batch of seeds and an image in [-1, 1]
     (each item against its own /edit; the image's batch gap witnessed at
     f32 by batch_gap), /invert (timed under the server's own flags, then
-    against pipe.invert with deterministic cuDNN, the same bits), /segment
+    against pipe.invert on the service's device thread with deterministic
+    cuDNN, the same bits), /segment
     (seeded SAM ViT-L), and one /edit under device_trace (the device's busy
     share of its window); then the metrics and LPIPS of the served strips,
     card against CPU. Returns the launches of every request."""
@@ -2079,7 +2080,9 @@ def phase_serve_p2(work_dir, model_name="FFHQ_P2", device="cuda"):
                                    url + "/invert", {"image": b64_array(x0)}, (ADMUNet,),
                                    P2_PER_FWD, {"ADMUNet": inv_fwd}, svc)
             add_launches(total, launches)
-            ref = svc.pipe.invert(x0).cpu().numpy()
+            # on the service's device thread, where /invert ran: cuDNN keeps
+            # the algorithms it measured per thread (core/device.py)
+            ref = svc.on_device(svc.pipe.invert, x0).cpu().numpy()
         finally:
             torch.backends.cudnn.deterministic = saved
         import base64

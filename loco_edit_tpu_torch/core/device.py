@@ -28,14 +28,39 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
 
 def use_full_f32(dtype: torch.dtype = torch.float32) -> None:
     """The port's f32 policy, set by its f32 entry points (the loaders at
-    dtype float32, which the CLI's --dtype fp32 reaches, and SAM): cuBLAS
-    matmuls and cuDNN convolutions in full f32, not TF32. PyTorch's default
-    runs f32 convolutions in TF32, which moves a full-width f32 forward off
-    the CPU by more than 1e-3 relative (PERF.md section 7). Process-wide, as
-    the flags are; a bf16 dtype leaves them as they are."""
+    dtype float32, which the CLI's --dtype fp32 and an f32 training run
+    built on them reach, and SAM): cuBLAS matmuls and cuDNN convolutions in
+    full f32, not TF32, each convolution on the faster of the first two
+    engines cuDNN proposes for it, by measurement.
+
+    TF32 convolutions move the full-width f32 FFHQ_P2 eps 8.7e-4 to
+    9.8e-4 of its largest value off the CPU's on an H100, full f32 5.9e-6
+    (tests/test_torch_cuda.py::test_f32_loader_sets_full_f32_policy holds
+    a bound between them).
+
+    cuDNN's heuristic alone sends batched f32 convolutions to FFT-tiling
+    engines far slower than its second proposal: one P2 forward's
+    convolutions at batch 9 take 1030 ms against 106 on an H100
+    (docs/CONV_CHOICE_P2.md has each shape). `cudnn.benchmark` times the
+    candidates the first time a thread runs a convolution signature
+    (shapes, memory format, dtype, pass) and keeps the fastest for that
+    thread. `benchmark_limit` 2 (PyTorch's default 10) bounds that
+    one-time cost: about 8 s in the LCM engine's first edit against 180 s
+    with 10, while one P2 forward's convolutions, forward and input
+    gradient together, stay within 9 % of the 10-candidate choice's time
+    at every batch (PERF.md section 6). The cost lands in the first call of
+    each signature on a thread: the server's warm-up edit, made on the
+    device thread that runs every request's device work (serve.py), a
+    fixed-shape training run's first step; a caller that changes the
+    image size on every request pays it once a size.
+
+    Process-wide, as the flags are; a bf16 dtype leaves all of them as
+    they are."""
     if dtype == torch.float32:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.benchmark_limit = 2
 
 
 def to_device(value, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -5,9 +5,12 @@ One warm edit pipeline (models on the card, kernels built, the basis disk
 cache) behind a minimal HTTP API, so interactive editing front-ends pay the
 model build once and steady-state latency per edit. The engine follows the
 CLI flags: --model_name picks uncond / SD / LCM / DeepFloyd-IF exactly as
-cli.main does, on --device (the card unless `--device cpu`). Requests
-serialize through a lock (one card, one compute stream); scale-out is one
-process per card behind any HTTP balancer.
+cli.main does, on --device (the card unless `--device cpu`). Each request
+is read and answered on a thread of its own, and the device work of every
+request runs on the service's one device thread, one request at a time (one
+card, one compute stream; see EditService.on_device), so /health answers
+while an edit runs; scale-out is one process per card behind any HTTP
+balancer.
 
 The wire format is the JAX server's, so the two servers' clients are
 interchangeable:
@@ -49,8 +52,9 @@ interchangeable:
   GET  /health  -> {"ok": true, "engine": "...", "edits_served": n}
 
 Each POST is a `request` span (utils/logger.py; recorded only while the
-recorder is on) and the locked edit inside it a `request.edit` span, whose
-clock reads give the response's "secs".
+recorder is on) and the edit inside it, on the device thread, a
+`request.edit` span in the same request, whose clock reads give the
+response's "secs".
 
 A "seed" names x_T (z_T) through core/rng.py::RngStream.from_seed(seed) on
 the pipeline's device: the same seed names a different x_T here than on
@@ -70,11 +74,12 @@ import contextlib
 import json
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from loco_edit_tpu_torch.utils.logger import REQUEST, Span, span
+from loco_edit_tpu_torch.utils.logger import REQUEST, Span, carried, current_span, span
 
 
 def _b64(a) -> str:
@@ -138,14 +143,29 @@ class EditService:
                 self.sample_shape = tuple(self.bundle["latent_shape"])
                 self.mask_shape = _decoded_shape(self.sample_shape,
                                                  self.bundle["models"]["decoder"])
-        self.lock = threading.Lock()
+        # one long-lived thread runs the device work of every request, one
+        # at a time: cuDNN keeps the algorithm it measured for each
+        # convolution signature per thread (core/device.py::use_full_f32),
+        # so the warm-up edit chooses them for every later request
+        self._device = ThreadPoolExecutor(max_workers=1,
+                                          thread_name_prefix="edit-device")
         self.edits_served = 0
         self._args = args
         self._sam = None        # SamBundle, prepared on first use
-        # separate init lock: the first SAM load can take a while and must
-        # not stall /edit and /invert requests, which only contend on
-        # self.lock
+        # the first SAM load can take a while; it runs on the requesting
+        # thread under its own lock, so it does not stall the device thread
         self._sam_lock = threading.Lock()
+
+    def on_device(self, fn, *args):
+        """fn(*args) on the device thread, after the work queued before it;
+        the caller's open span (its request) is carried across, so the
+        spans and counters of the work fall in the caller's request."""
+        parent = current_span()
+
+        def run():
+            with carried(parent):
+                return fn(*args)
+        return self._device.submit(run).result()
 
     def _sam_bundle(self):
         with self._sam_lock:
@@ -203,7 +223,7 @@ class EditService:
     @contextlib.contextmanager
     def _cfg_overrides(self, **kv):
         """Per-request pipeline-config overrides, restored on exit (the warm
-        pipeline is shared state; requests serialize through self.lock)."""
+        pipeline is shared state; requests serialize on the device thread)."""
         cfg = self.pipe.cfg
         old = {k: getattr(cfg, k) for k in kv}
         for k, v in kv.items():
@@ -267,27 +287,31 @@ class EditService:
         _, zT = self._resolve_input(req)
         rank = int(req.get("pca_rank") or self.pipe.cfg.pca_rank)
         name = self._cache_name(req, rank)
-        with self.lock, Span("request.edit") as timed:
-            nsp = (self.pipe.cfg.null_space_projection and mask is not None)
-            with self._cfg_overrides(**self._t2i_overrides(px, rank, nsp, semantic)):
-                if self.engine == "sd":
-                    out = self.pipe.run_edit_null_space_projection_zt(
-                        for_prompt, edit_prompt, zT=zT, mask=mask,
-                        sample_name=name, semantic=semantic)
-                    strips = out["strips"]
-                elif self.engine == "lcm":
-                    out = self.pipe.run_edit_null_space_projection_zt(
-                        for_prompt, edit_prompt, zT=zT, mask=mask,
-                        sample_name=name)
-                    strips = {0: out["image"]}
-                else:   # if
-                    out = self.pipe.run_edit_null_space_projection_xt(
-                        for_prompt, edit_prompt, xT=zT, mask=mask,
-                        sample_name=name, semantic=semantic)
-                    strips = {0: out["image"]}
-            self.edits_served += 1
+        def run():
+            with Span("request.edit") as timed:
+                nsp = (self.pipe.cfg.null_space_projection and mask is not None)
+                with self._cfg_overrides(**self._t2i_overrides(px, rank, nsp, semantic)):
+                    if self.engine == "sd":
+                        out = self.pipe.run_edit_null_space_projection_zt(
+                            for_prompt, edit_prompt, zT=zT, mask=mask,
+                            sample_name=name, semantic=semantic)
+                        strips = out["strips"]
+                    elif self.engine == "lcm":
+                        out = self.pipe.run_edit_null_space_projection_zt(
+                            for_prompt, edit_prompt, zT=zT, mask=mask,
+                            sample_name=name)
+                        strips = {0: out["image"]}
+                    else:   # if
+                        out = self.pipe.run_edit_null_space_projection_xt(
+                            for_prompt, edit_prompt, xT=zT, mask=mask,
+                            sample_name=name, semantic=semantic)
+                        strips = {0: out["image"]}
+                self.edits_served += 1
+            return strips, nsp, timed.seconds
+
+        strips, nsp, secs = self.on_device(run)
         return {**self._strip_payload(strips),
-                "null_space_projection": nsp, "secs": round(timed.seconds, 3)}
+                "null_space_projection": nsp, "secs": round(secs, 3)}
 
     def edit(self, req: dict) -> dict:
         if self.engine != "uncond":
@@ -297,19 +321,23 @@ class EditService:
         px = self._pixel_flag(req)
         rank = int(req.get("pca_rank") or self.pipe.cfg.pca_rank)
         name = self._cache_name(req, rank)
-        with self.lock, Span("request.edit") as timed:
-            # API contract: one strip per requested principal component;
-            # null-space projection needs a mask, and maskless requests fall
-            # back to the unprojected basis (signalled in the response)
-            nsp = (self.pipe.cfg.null_space_projection and mask is not None)
-            with self._cfg_overrides(
-                    pixel_output=px, pca_rank=rank, vis_num_pc=rank,
-                    null_space_projection=nsp):
-                out = self.pipe.run_edit_null_space_projection(
-                    x0=x0, xT=xT, mask=mask, sample_name=name)
-            self.edits_served += 1
+        def run():
+            with Span("request.edit") as timed:
+                # API contract: one strip per requested principal component;
+                # null-space projection needs a mask, and maskless requests
+                # fall back to the unprojected basis (signalled in the response)
+                nsp = (self.pipe.cfg.null_space_projection and mask is not None)
+                with self._cfg_overrides(
+                        pixel_output=px, pca_rank=rank, vis_num_pc=rank,
+                        null_space_projection=nsp):
+                    out = self.pipe.run_edit_null_space_projection(
+                        x0=x0, xT=xT, mask=mask, sample_name=name)
+                self.edits_served += 1
+            return out, nsp, timed.seconds
+
+        out, nsp, secs = self.on_device(run)
         return {**self._strip_payload(out["strips"]),
-                "null_space_projection": nsp, "secs": round(timed.seconds, 3)}
+                "null_space_projection": nsp, "secs": round(secs, 3)}
 
     def edit_batch(self, req: dict) -> dict:
         """Throughput form: resolve every item, then run ONE batched
@@ -357,43 +385,52 @@ class EditService:
 
         from loco_edit_tpu_torch.pipelines.common import _host
 
-        with self.lock, Span("request.edit") as timed:
-            nsp = self.pipe.cfg.null_space_projection and all_masked
-            with self._cfg_overrides(
-                    pixel_output=px, pca_rank=rank, vis_num_pc=rank,
-                    null_space_projection=nsp):
-                if img_rows:   # ONE inversion for every image item
-                    inv = self.pipe.invert(np.stack(img_stack).astype(np.float32))
-                    xTs[img_rows] = _host(inv)
-                results = self.pipe.run_edit_batch(
-                    xTs=xTs, masks=masks, sample_names=names)
-            self.edits_served += n
+        def run():
+            with Span("request.edit") as timed:
+                nsp = self.pipe.cfg.null_space_projection and all_masked
+                with self._cfg_overrides(
+                        pixel_output=px, pca_rank=rank, vis_num_pc=rank,
+                        null_space_projection=nsp):
+                    if img_rows:   # ONE inversion for every image item
+                        inv = self.pipe.invert(np.stack(img_stack).astype(np.float32))
+                        xTs[img_rows] = _host(inv)
+                    results = self.pipe.run_edit_batch(
+                        xTs=xTs, masks=masks, sample_names=names)
+                self.edits_served += n
+            return results, nsp, timed.seconds
+
+        results, nsp, secs = self.on_device(run)
         return {"results": [
                     {**self._strip_payload(r["strips"]),
                      "null_space_projection": nsp} for r in results],
-                "null_space_projection": nsp, "secs": round(timed.seconds, 3)}
+                "null_space_projection": nsp, "secs": round(secs, 3)}
 
     def _edit_batch_t2i(self, req, zTs, masks, names, all_masked, px, rank):
         """SD/LCM throughput form: ONE batched generation runs every seed to
         the edit step (pipelines/{sd,lcm}.py run_edit_batch)."""
         for_prompt, edit_prompt = self._t2i_prompts(req)
         semantic = self._semantic_flag(req)
-        with self.lock, Span("request.edit") as timed:
-            nsp = self.pipe.cfg.null_space_projection and all_masked
-            with self._cfg_overrides(**self._t2i_overrides(px, rank, nsp, semantic)):
-                if self.engine == "sd":
-                    results = self.pipe.run_edit_batch(
-                        for_prompt, edit_prompt, zTs=zTs, masks=masks,
-                        sample_names=names, semantic=semantic)
-                    payloads = [self._strip_payload(r["strips"]) for r in results]
-                else:
-                    results = self.pipe.run_edit_batch(
-                        for_prompt, edit_prompt, zTs=zTs, masks=masks,
-                        sample_names=names)
-                    payloads = [self._strip_payload({0: r["image"]}) for r in results]
-            self.edits_served += len(names)
-        return {"results": [{**p, "null_space_projection": nsp} for p in payloads],
-                "null_space_projection": nsp, "secs": round(timed.seconds, 3)}
+        def run():
+            with Span("request.edit") as timed:
+                nsp = self.pipe.cfg.null_space_projection and all_masked
+                with self._cfg_overrides(**self._t2i_overrides(px, rank, nsp, semantic)):
+                    if self.engine == "sd":
+                        results = self.pipe.run_edit_batch(
+                            for_prompt, edit_prompt, zTs=zTs, masks=masks,
+                            sample_names=names, semantic=semantic)
+                        strips = [r["strips"] for r in results]
+                    else:
+                        results = self.pipe.run_edit_batch(
+                            for_prompt, edit_prompt, zTs=zTs, masks=masks,
+                            sample_names=names)
+                        strips = [{0: r["image"]} for r in results]
+                self.edits_served += len(names)
+            return strips, nsp, timed.seconds
+
+        strips, nsp, secs = self.on_device(run)
+        return {"results": [{**self._strip_payload(st), "null_space_projection": nsp}
+                            for st in strips],
+                "null_space_projection": nsp, "secs": round(secs, 3)}
 
     def invert(self, req: dict) -> dict:
         from loco_edit_tpu_torch.pipelines.common import _host
@@ -407,11 +444,14 @@ class EditService:
                  else self.mask_shape)
         h, w, c = shape[1:]
         x0 = _unb64(req["image"], (1, h, w, c))
-        with self.lock:
-            refine = ({"inv_refine_steps": int(req["refine_steps"])}
-                      if "refine_steps" in req else {})
+        refine = ({"inv_refine_steps": int(req["refine_steps"])}
+                  if "refine_steps" in req else {})
+
+        def run():
             with self._cfg_overrides(**refine):
-                xT = _host(self.pipe.invert(x0))
+                return _host(self.pipe.invert(x0))
+
+        xT = self.on_device(run)
         return {"xT": _b64(xT), "shape": list(xT.shape)}
 
     def segment(self, req: dict) -> dict:
@@ -424,14 +464,13 @@ class EditService:
         # for uncond/IF)
         h, w, c = self.mask_shape[1:]
         x0 = _unb64(req["image"], (1, h, w, c))
-        # the bundle is prepared OUTSIDE the edit lock (its own init lock);
-        # only the device work below contends with /edit
+        # the bundle is prepared on this thread (its own init lock); only
+        # the device work below queues behind /edit
         bundle = self._sam_bundle()
-        with self.lock:
-            masks = segment_image_on_device(
-                to_uint8(x0)[0], prepared=bundle, resolution=h,
-                filter_mask=int(req.get("filter_mask", 100)),
-                points_per_side=int(req.get("points_per_side", 32)))
+        masks = self.on_device(lambda: segment_image_on_device(
+            to_uint8(x0)[0], prepared=bundle, resolution=h,
+            filter_mask=int(req.get("filter_mask", 100)),
+            points_per_side=int(req.get("points_per_side", 32))))
         payload = base64.b64encode(
             np.ascontiguousarray(masks, np.uint8).tobytes()).decode()
         return {"masks": payload, "shape": list(masks.shape)}
@@ -443,10 +482,11 @@ class EditService:
 
 def make_server(service: EditService, port: int = 8787) -> ThreadingHTTPServer:
     """A ThreadingHTTPServer on 127.0.0.1:port (0: any free port) over
-    `service`. Each request runs on its own thread: PyTorch's thread-local
-    state (grad mode, the current stream) starts at its defaults there;
-    the backend flags the port sets (core/device.py::use_full_f32) are
-    process-wide and hold in every handler."""
+    `service`. Each request is read and answered on its own thread; its
+    device work runs on the service's device thread (EditService.on_device),
+    where PyTorch's thread-local state (grad mode, the current stream)
+    starts at its defaults; the backend flags the port sets
+    (core/device.py::use_full_f32) are process-wide."""
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, payload: dict):
             self._send_body(code, json.dumps(payload).encode())
@@ -515,8 +555,9 @@ def main(argv=None):
     print(f"kernel build directory: {enable_compile_cache()}", flush=True)
     args = preset(args)
     service = EditService(args)
-    # one warm-up edit in this thread builds and loads the kernels before
-    # any request arrives; a failure here is the server's failure
+    # one warm-up edit, on the device thread that serves every request,
+    # builds and loads the kernels and chooses the convolutions' algorithms
+    # before any request arrives; a failure here is the server's failure
     print(f"warming {service.engine} pipeline on {service.pipe.device}...", flush=True)
     warm = {"seed": 0, "sample_name": "warmup"}
     if service.engine != "uncond":

@@ -240,6 +240,29 @@ class Span:
         return (self.t1_ns - self.t0_ns) / 1e9
 
 
+def current_span() -> SpanRecord | None:
+    """The innermost span recorded open on this thread (None when none is)."""
+    st = _open_spans()
+    return st[-1] if st else None
+
+
+@contextlib.contextmanager
+def carried(parent: SpanRecord | None):
+    """Open spans and count on this thread as inside `parent`, a span open
+    on another thread (its current_span()), so that work handed to another
+    thread stays in its request. None: nothing to carry."""
+    if parent is None:
+        yield
+        return
+    st = _open_spans()
+    st.append(parent)
+    try:
+        yield
+    finally:
+        if parent in st:
+            del st[st.index(parent):]
+
+
 def span(name: str, device: bool = False, **attrs):
     """A Span while the recorder is on, else the shared null context."""
     return Span(name, device, **attrs) if _ON else _NULL

@@ -4,7 +4,8 @@ Flax init of key(0) + 0.02, carried into the port) and the JAX package's
 random draws fed to the port's pipeline, each served over HTTP on port 0:
 the wire format, /invert, a float /edit of one image, the cache names, the
 error surfaces and the maskless fallback; then the port alone: /edit_batch
-item by item against /edit, and TF32 staying off in a handler thread."""
+item by item against /edit, TF32 staying off on the device thread, and
+/health answering while an edit runs."""
 
 import base64
 import json
@@ -99,9 +100,11 @@ def servers(tmp_path_factory):
 
     mp.setattr(registry, "load_tiny_denoiser", load_jax_weights)
     mp.setattr(torch_rng, "seed_everything", lambda seed: JaxDraws(jax.random.key(seed)))
-    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.benchmark)
     # PyTorch's defaults: the f32 service must turn TF32 off itself
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
     try:
         svc = EditService(preset(parse_args(
             ARGV + ["--device", "cpu", "--result_folder",
@@ -117,7 +120,8 @@ def servers(tmp_path_factory):
         jsrv.shutdown()
     finally:
         mp.undo()
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.benchmark) = flags
 
 
 def test_health_invert_and_refine_match_jax(servers):
@@ -232,27 +236,76 @@ def test_edit_batch_items_match_single_edits(servers):
 
 def test_f32_server_keeps_tf32_off_in_handler_threads(servers, monkeypatch):
     """The f32 service set the port's f32 policy (core/device.py) at build;
-    an /edit handled on a server thread sees TF32 off for matmuls and
-    convolutions, and the pixel strips equal to_uint8 of the float ones."""
+    two /edit requests, each read on a handler thread of its own, run their
+    edits on the service's one device thread (cuDNN keeps its measured
+    choices per thread), which sees TF32 off for matmuls and convolutions
+    and cuDNN's measured choice of algorithm on; the pixel strips equal
+    to_uint8 of the float ones."""
     from loco_edit_tpu_torch.utils.io import to_uint8
 
     s = servers
-    seen = {}
-    edit = s["svc"].edit
+    seen, handlers, devices = {}, [], []
+    edit, run = s["svc"].edit, s["svc"].pipe.run_edit_null_space_projection
 
-    def spy(req):
-        seen.update(thread=threading.current_thread().name,
-                    matmul=torch.backends.cuda.matmul.allow_tf32,
-                    cudnn=torch.backends.cudnn.allow_tf32)
+    def spy_edit(req):
+        handlers.append(threading.current_thread())
         return edit(req)
 
-    monkeypatch.setattr(s["svc"], "edit", spy)
+    def spy_run(*a, **k):
+        devices.append(threading.current_thread())
+        seen.update(matmul=torch.backends.cuda.matmul.allow_tf32,
+                    cudnn=torch.backends.cudnn.allow_tf32,
+                    benchmark=torch.backends.cudnn.benchmark)
+        return run(*a, **k)
+
+    monkeypatch.setattr(s["svc"], "edit", spy_edit)
+    monkeypatch.setattr(s["svc"].pipe, "run_edit_null_space_projection", spy_run)
     req = {"seed": 41, "mask_bbox": [8, 20, 8, 20], "sample_name": "px"}
     s["svc"].pipe._boost_calls = 0
     _, out_f = _post(s["url"] + "/edit", dict(req, pixel=False))
     s["svc"].pipe._boost_calls = 0
     _, out_u = _post(s["url"] + "/edit", dict(req, pixel=True))
-    assert seen["thread"] != threading.current_thread().name
-    assert seen["matmul"] is False and seen["cudnn"] is False
+    assert len(handlers) == len(devices) == 2 and devices[0] is devices[1]
+    assert handlers[0] is not handlers[1]
+    assert devices[0] not in (*handlers, threading.current_thread())
+    assert seen["matmul"] is False and seen["cudnn"] is False and seen["benchmark"] is True
     assert out_f["dtype"] == "float32" and out_u["dtype"] == "uint8"
     np.testing.assert_array_equal(_strip(out_u), to_uint8(_strip(out_f)))
+
+
+def test_health_answers_while_an_edit_runs(servers, monkeypatch):
+    """/health, which does no device work, answers while an /edit holds the
+    device thread, and a second /edit waits for the first."""
+    s = servers
+    started, release = threading.Event(), threading.Event()
+    run = s["svc"].pipe.run_edit_null_space_projection
+    order = []
+
+    def held(*a, **k):
+        order.append(k["sample_name"])
+        started.set()
+        assert release.wait(120), "the test never released the edit"
+        return run(*a, **k)
+
+    monkeypatch.setattr(s["svc"].pipe, "run_edit_null_space_projection", held)
+    answers = {}
+
+    def post(name):
+        answers[name] = _post(s["url"] + "/edit", {"seed": 43, "sample_name": name})
+
+    first = threading.Thread(target=post, args=("held1",))
+    first.start()
+    try:
+        assert started.wait(60)
+        second = threading.Thread(target=post, args=("held2",))
+        second.start()
+        served = s["svc"].edits_served
+        code, health = _get(s["url"] + "/health")
+        assert code == 200 and health["ok"] and health["edits_served"] == served
+        assert order == ["held1"] and first.is_alive()
+    finally:
+        release.set()
+        first.join(300)
+    second.join(300)
+    assert order == ["held1", "held2"]
+    assert answers["held1"][0] == answers["held2"][0] == 200
