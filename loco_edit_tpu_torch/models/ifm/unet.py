@@ -12,8 +12,10 @@ diffusers UNet2DConditionModel of the IF checkpoints):
   - IFResBlock: scale-shift time conditioning, up/downsampling inside the
     block (the h path and the residual nearest-upsampled / avg-pooled), a
     1x1 shortcut only where in_ch != out_ch.
-  - exact-erf GELU (act_fn "gelu") in the res blocks, the time MLP and the
-    output head; the stage-2 class (aug-level) MLP keeps SiLU.
+  - exact-erf GELU (act_fn "gelu") in the res blocks, the time MLP, the
+    stage-2 class (aug-level) MLP and the output head. The class MLP is the
+    one departure from the JAX package, which keeps SiLU there: diffusers
+    builds the class TimestepEmbedding with the U-Net's act_fn.
   - T5 states projected by encoder_hid_proj, plus the "text" addition
     embedding (TextTimeEmbedding: LayerNorm, a one-query attention pool,
     Linear, LayerNorm on the raw states) added to the time embedding.
@@ -266,7 +268,7 @@ class IFUNet(nn.Module):
             timestep_embedding(per_batch(t), ch0))))
         if cfg.class_embed_timestep:
             aug = per_batch(0.0 if aug_t is None else aug_t)
-            temb = temb + self.class_dense1(F.silu(self.class_dense0(
+            temb = temb + self.class_dense1(self.act(self.class_dense0(
                 timestep_embedding(aug, ch0))))
         if cfg.use_addition_text_embed:
             temb = temb + self.add_embedding(ctx)

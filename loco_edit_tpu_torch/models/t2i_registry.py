@@ -7,10 +7,14 @@ state_dict `.pt`/`.pth`/`.bin`/`.ckpt`/`.safetensors`, or a `.npz` of Flax
 parameters), --vae_path for the AutoencoderKL (a diffusers state_dict),
 --text_encoder_path for CLIP or T5 (a transformers directory), and for IF
 --stage2_checkpoint_path for the upscaler. A missing path gives seeded
-random weights (U-Net seed 0, encoder 1, decoder 2; for IF the tiny IF
-config, as in the JAX package) and the deterministic fake prompt encoder,
-enough to drive the whole engine. LOCO_SD_PRESET (e.g. `tiny`) picks
-another SD / LCM U-Net preset, as in the JAX package.
+random weights (U-Net seed 0, encoder 1, decoder 2; IF stage 1 seed 0,
+stage 2 seed 3) at the preset's widths, and the deterministic fake prompt
+encoder, enough to drive the whole engine. LOCO_SD_PRESET (e.g. `tiny`)
+picks another SD / LCM U-Net preset, as in the JAX package. IF without
+any checkpoint file is the pair LOCO-Edit serves, IF-I-M and the IF-II-L
+upscaler; LOCO_IF_PRESET `tiny` makes it the tiny stage 1 without an
+upscaler (the JAX package's IF default), `tiny,tiny` the tiny cascade. A
+stage-1 checkpoint gets an upscaler only from --stage2_checkpoint_path.
 
 Unlike the JAX package, the bundle leaves per-block rematerialization off:
 torch.utils.checkpoint does not compose with torch.func's jvp and vmap, and
@@ -118,14 +122,31 @@ def load_sd_bundle(args, lcm: bool = False) -> dict:
     return sd_bundle(unet, enc, dec, prompt_encoder)
 
 
-def _load_if_model(path: str, dtype: torch.dtype, device: torch.device,
-                   stage2: bool = False):
+IF_PRESETS = ("IF-I-M", "IF-II-L")    # the pair LOCO-Edit serves
+
+
+def if_configs(dtype: torch.dtype = torch.float32):
+    """(stage-1 IFUNetConfig, stage-2 IFUNetConfig or None) of the models
+    built without checkpoint files: IF_PRESETS, or with LOCO_IF_PRESET
+    `tiny` the tiny stage 1 alone and with `tiny,tiny` the tiny cascade."""
+    from loco_edit_tpu_torch.models.ifm import if_preset, tiny_if_config
+
+    override = os.environ.get("LOCO_IF_PRESET", "")
+    if not override:
+        return tuple(if_preset(n, dtype=dtype) for n in IF_PRESETS)
+    if override not in ("tiny", "tiny,tiny"):
+        raise ValueError(f"LOCO_IF_PRESET {override!r}: `tiny` or `tiny,tiny`")
+    return (tiny_if_config(dtype=dtype),
+            tiny_if_config(stage2=True, dtype=dtype) if override == "tiny,tiny" else None)
+
+
+def _load_if_model(path: str, cfg, dtype: torch.dtype, device: torch.device,
+                   seed: int):
     """An IFUNet on `device` from a diffusers checkpoint (the geometry
-    inferred from its shapes: presets never gate loading), or the tiny
-    config with seeded random weights when no path is given (enough to
-    drive the engine)."""
+    inferred from its shapes: presets never gate loading), or `cfg` with
+    seeded random weights when no path is given."""
     from loco_edit_tpu_torch.models.ifm import (IFUNet, convert_if_state_dict,
-                                                infer_if_config, tiny_if_config)
+                                                infer_if_config)
 
     if path:
         if not path.endswith(TORCH_CKPT):
@@ -140,10 +161,9 @@ def _load_if_model(path: str, dtype: torch.dtype, device: torch.device,
             model = IFUNet(cfg)
         model.load_state_dict(state)
     else:
-        cfg = tiny_if_config(stage2=stage2, dtype=dtype)
         with torch.device(device):
             model = IFUNet(cfg)
-        model.init_random_(torch.Generator(device).manual_seed(3 if stage2 else 0))
+        model.init_random_(torch.Generator(device).manual_seed(seed))
     return model.requires_grad_(False).eval()
 
 
@@ -151,8 +171,10 @@ def load_if_bundle(args) -> dict:
     """DeepFloyd-IF on args.device: the stage-1 U-Net from
     --checkpoint_path, the T5 encoder from --text_encoder_path (else the
     fake encoder, as wide as the U-Net's encoder_hid_dim), and the stage-2
-    upscaler sampler from --stage2_checkpoint_path (the reference pairs
-    IF-I-M with IF-II-L). At f32 sets the port's f32 policy
+    upscaler sampler from --stage2_checkpoint_path; without a stage-1
+    checkpoint, the if_configs() pair with seeded weights (IF-I-M with the
+    IF-II-L upscaler, as the reference pairs them), a stage-2 checkpoint
+    taking the upscaler's place. At f32 sets the port's f32 policy
     (use_full_f32)."""
     from loco_edit_tpu_torch.core.rng import RngStream
     from loco_edit_tpu_torch.pipelines.superres import SuperResSampler
@@ -160,7 +182,10 @@ def load_if_bundle(args) -> dict:
     device = resolve_device(getattr(args, "device", "cuda"))
     dtype = _torch_dtype(args.dtype)
     use_full_f32(dtype)
-    model = _load_if_model(args.checkpoint_path, dtype, device)
+    # a stage-1 checkpoint's geometry is its own, and it is upscaled only
+    # by a stage-2 checkpoint, never by a seeded preset
+    cfg1, cfg2 = (None, None) if args.checkpoint_path else if_configs(dtype)
+    model = _load_if_model(args.checkpoint_path, cfg1, dtype, device, 0)
     cfg = model.cfg
     path = getattr(args, "text_encoder_path", "")
     prompt_encoder = (t5_prompt_encoder(path, device=device) if path
@@ -173,8 +198,8 @@ def load_if_bundle(args) -> dict:
         "models": {"unet": model},
     }
     s2_path = getattr(args, "stage2_checkpoint_path", "")
-    if s2_path:
-        m2 = _load_if_model(s2_path, dtype, device, stage2=True)
+    if s2_path or cfg2 is not None:
+        m2 = _load_if_model(s2_path, cfg2, dtype, device, 3)
         bundle["superres"] = SuperResSampler(
             lambda x, t, c, aug_t: m2(x, t, c, aug_t), prompt_encoder,
             out_size=m2.cfg.sample_size,

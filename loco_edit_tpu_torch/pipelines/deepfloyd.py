@@ -12,9 +12,9 @@ masked-DiffEdit and SEGA ablation samplers, and the stage-2 upscaler hook
 Randomness comes from named forks of the run's RngStream with the JAX
 package's stream names ("xT", "if-probes-{rank}", "diffedit"), so a test can
 hand the pipeline a stream that yields the JAX package's draws. With
-`cfg.pixel_output` the stage-1 strip (pixel space already) is converted to
-uint8 on the device before the copy to the host; the stage-2 upscaler reads
-the float strip. The mesh knobs
+`cfg.pixel_output` the stage-1 strip (pixel space already) and the stage-2
+strip are each converted to uint8 on the device before the copy to the
+host; the stage-2 upscaler reads the float stage-1 strip. The mesh knobs
 (--mesh_probe, --mesh_data) come from EngineExec (pipelines/common.py).
 """
 
@@ -75,7 +75,8 @@ class IFEditConfig:
     mesh_probe: int = 0          # split the probes over this many ranks (0 = off)
     mesh_data: int = 0           # split strip frames / batch samples over ranks (0 = off)
     memory_bound: int = 0        # chunk strip denoise batches (0 = off)
-    # return the stage-1 strip as uint8 pixels, converted on the device
+    # return the stage-1 and stage-2 strips as uint8 pixels, converted on
+    # the device
     pixel_output: bool = False
     result_folder: str = "./runs"
     save_images: bool = True
@@ -301,7 +302,8 @@ class IFEditPipeline(EngineExec):
                             os.path.join(out_dir, "edit-if-stage1.png"))
         if self.superres is not None:
             with _Phase(self.timings, "superres", self.device):
-                img = _host(self.superres(x0, for_prompt))
+                up = self.superres(x0, for_prompt)
+                img = _host(to_uint8_pixels_device(up) if cfg.pixel_output else up)
             if cfg.save_images:
                 self._submit_io(save_image_grid, img,
                                 os.path.join(out_dir, "edit-if-stage2.png"))

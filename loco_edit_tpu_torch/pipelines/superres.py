@@ -7,7 +7,9 @@ denoised on the linspace DDIM grid with CFG under the 'for' prompt. With
 `aug_level` set (the IF-II protocol, diffusers' noise_level 250), the
 conditioning image is noise-augmented at that raw timestep and the level is
 fed to the U-Net's class embedding: unet_apply(x, t, ctx, aug_t). Returns
-images in [-1, 1].
+images in [-1, 1]. Every U-Net call (one a step: the CFG variants ride on
+the batch) adds one to the request's `sr_forwards` counter
+(utils/logger.py::count).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from loco_edit_tpu_torch.core.rng import RngStream
 from loco_edit_tpu_torch.diffusion import LinspaceDDIM
 from loco_edit_tpu_torch.diffusion.sampling import ddim_scan
 from loco_edit_tpu_torch.editing.cfg import cfg_eps
+from loco_edit_tpu_torch.utils.logger import count
 
 
 def _bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -104,6 +107,7 @@ class SuperResSampler:
             # cfg_eps stacks the CFG variants on the batch axis; the
             # conditioning image is repeated to match
             cc = torch.cat([cond] * (x.shape[0] // cond.shape[0]), dim=0).to(x.dtype)
+            count("sr_forwards")
             return self.unet_apply(torch.cat([x, cc], dim=-1), t, ctx)
 
         def eps(x, t):

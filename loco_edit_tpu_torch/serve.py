@@ -24,10 +24,13 @@ interchangeable:
                  an edit_prompt is given: text-supervised direction; false
                  = unsupervised power iteration)}; "seed" seeds zT/xT; the
                  mask_bbox is in DECODED-image pixel coordinates for SD/LCM
-                 (the pullback output space) and sample pixels for IF.
+                 (the pullback output space) and stage-1 sample pixels for
+                 IF (64 px at the presets).
              -> {"strips": {pc: <b64 bytes>}, "shape": [...], "dtype": "float32"
                  | "uint8" (with "pixel": true: converted on the device, 4x
-                 smaller copy and response),
+                 smaller copy and response; IF's strip is the upscaler's,
+                 frames of 256 x 256 x 3 at the presets, stage 1's when no
+                 upscaler is bound),
                  "null_space_projection": bool (false = maskless fallback to
                  the unprojected basis), "secs": float}
   POST /edit_batch {"items": [{"seed" | "image", "mask_bbox"?, "sample_name"?},

@@ -12,8 +12,10 @@ torch.profiler stamps its events with, so spans line up with a device
 trace. The recorder is off by default; then `span()` is one flag check
 that returns a shared null context. `start_recording()` turns it on and
 `stop_recording()` turns it off and hands over what it kept (a
-`Recording`: the spans and, per request, the counters of `count()`).
-Nothing is written while it records.
+`Recording`: the spans and, per request, the counters of `count()`:
+`readbacks`, each wait of the host for the card, and `sr_forwards`, the IF
+upscaler's U-Net calls, pipelines/superres.py). Nothing is written while
+it records.
 
 `device_trace(log_dir)` is the counterpart of the JAX package's
 `tpu_trace`: a torch.profiler trace of the enclosed work (CPU activity,

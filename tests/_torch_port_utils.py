@@ -2,6 +2,8 @@
 loco_edit_tpu: NHWC <-> channels_last conversion, the tiny ADM carried from
 Flax parameters, and a random stream that yields the JAX package's draws."""
 
+import functools
+
 import flax
 import jax
 import jax.numpy as jnp
@@ -147,13 +149,31 @@ def lcm_tiny_pair():
     return junet, pu, unet.requires_grad_(False).eval()
 
 
+class _ClassMLPGelu:
+    """A JAX IF U-Net whose stage-2 class (aug-level) MLP is activated by
+    exact GELU, as diffusers builds it and the port follows; the JAX package
+    keeps SiLU there. Its other activations are GELU (act_fn "gelu"), so
+    jax.nn.silu is swapped for the call, which a jax.jit traces."""
+
+    def __init__(self, junet):
+        self.junet = junet
+
+    def apply(self, *args, **kw):
+        silu = jax.nn.silu
+        jax.nn.silu = functools.partial(jax.nn.gelu, approximate=False)
+        try:
+            return self.junet.apply(*args, **kw)
+        finally:
+            jax.nn.silu = silu
+
+
 def if_tiny_pair(stage2: bool = False, dtype=None):
     """The tiny IF U-Net (tiny_if_config, stage 1 at 16 px or stage 2 at
     32 px) in both packages with the same weights: lecun-normal draws in
     the Flax shapes (seed 6 or 7), the pool's positional embedding normal,
     + 0.01 each, carried by if_params_from_flax. dtype (torch) builds the
     port's module in that dtype from the same weights. Returns (jax_model,
-    jax_params, torch_model)."""
+    jax_params, torch_model); stage 2's jax_model is _ClassMLPGelu's."""
     from loco_edit_tpu.models.ifm import IFUNet as JUNet
     from loco_edit_tpu.models.ifm import tiny_if_config as jtiny
     from loco_edit_tpu_torch.models.ifm import IFUNet, if_params_from_flax, tiny_if_config
@@ -172,7 +192,7 @@ def if_tiny_pair(stage2: bool = False, dtype=None):
     cfg = tiny_if_config(stage2=stage2, **({} if dtype is None else {"dtype": dtype}))
     unet = IFUNet(cfg)
     unet.load_state_dict(if_params_from_flax(flat_params(params), cfg))
-    return junet, params, unet.requires_grad_(False).eval()
+    return (_ClassMLPGelu(junet) if stage2 else junet), params, unet.requires_grad_(False).eval()
 
 
 def tiny_sam_model(decoder_heads: int = 2, window_size: int = 2):

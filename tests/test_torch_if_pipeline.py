@@ -170,13 +170,16 @@ IF_CLI = ["--model_name", "DeepFloyd-IF-I-M", "--dataset_name", "Random",
 
 
 def test_if_cli_on_cpu_with_diffedit_mask(tmp_path, monkeypatch):
-    """The IF CLI on the CPU: the tiny IF config without a checkpoint, the
+    """The IF CLI on the CPU: the tiny IF config without a checkpoint
+    (LOCO_IF_PRESET=tiny: the tiny stage 1 alone, as the JAX package's
+    bundle builds without files; the port's default is IF-I-M + IF-II-L), the
     DiffEdit mask of the sample the edit starts from, the semantic direct
     direction (the CLI's basis iterations run 10-50 sweeps, so the null-space
     projection is left to the pipeline tests), IFforward.png and the edit's
     artifacts; z_t is the pipeline's from the same seed. A stage-2
     checkpoint (synthetic, diffusers names) loads into the upscaler
     through infer_if_config."""
+    monkeypatch.setenv("LOCO_IF_PRESET", "tiny")
     monkeypatch.setattr(torch_rng, "seed_everything",
                         lambda seed: JaxDraws(jax.random.key(seed)))
     res = main.main(IF_CLI + ["--result_folder", str(tmp_path)])

@@ -1,6 +1,7 @@
 """The port's edit server with the T2I engines on the CPU: tiny SD and LCM
 bundles (the U-Nets and the 16 px VAE of sd_tiny_pairs / lcm_tiny_pair,
-the fake prompt encoder) and the seeded tiny IF of load_if_bundle: /edit
+the fake prompt encoder) and the seeded tiny IF of load_if_bundle
+(LOCO_IF_PRESET=tiny: the tiny stage 1 without an upscaler): /edit
 with "pixel" true and false (LCM's and IF's on-device uint8 strips equal
 to_uint8 of the float strips exactly), SD and LCM /edit_batch, the engines'
 error surfaces, and /segment with a tiny SAM."""
@@ -128,16 +129,19 @@ def test_lcm_serve_pixel_output_and_batch(tiny_bundles, tmp_path, monkeypatch):
         svc.invert({"image": ""})
 
 
-def test_if_serve_pixel_output_and_segment(tmp_path):
-    """IF (the seeded tiny IF of load_if_bundle, 16 px): the uint8 strip is
-    to_uint8 of the float strip; no batch API; /segment over HTTP with a
-    tiny SAM save_pretrained directory, the bundle kept warm."""
+def test_if_serve_pixel_output_and_segment(tmp_path, monkeypatch):
+    """IF (the seeded tiny IF of load_if_bundle, 16 px, no upscaler:
+    LOCO_IF_PRESET=tiny; the served cascade: test_torch_if_reference.py):
+    the uint8 strip is to_uint8 of the float strip; no batch API; /segment
+    over HTTP with a tiny SAM save_pretrained directory, the bundle kept
+    warm."""
     import json
     import threading
     import urllib.request
 
     from loco_edit_tpu_torch.serve import make_server
 
+    monkeypatch.setenv("LOCO_IF_PRESET", "tiny")
     svc = _make_service("DeepFloyd_IF_tiny", tmp_path)
     assert svc.engine == "if" and svc.mask_shape == (1,) + svc.sample_shape
     h = svc.sample_shape[0]
