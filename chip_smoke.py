@@ -6,6 +6,7 @@ Run from the root of a checkout, with one CUDA device:
     python3 chip_smoke.py
 
 It exits nonzero, printing no result, without a card or outside a checkout.
+`python3 chip_smoke.py --conv_route` runs phases 1 and 16 alone.
 `python3 chip_smoke.py --ranks N` runs phases 1 and 15 alone over N ranks,
 one a card (NCCL) on a host with N cards: the transport that gloo on one
 card does not use (all_gather and send/recv on the card).
@@ -3052,12 +3053,222 @@ def summarize_split(rows, name, launches):
             "library_ms": None}
 
 
+# full-width f32 outputs of the 3xTF32 convolution route against the same
+# computation on the f32 engines alone (the route off), on the card,
+# relative to the largest value: both are f32-accurate (the route's P2 eps
+# reads ~9e-6 off the CPU, full f32 ~6e-6); one TF32 rounding of the
+# operands lands ~9e-4 off (phase 3)
+CONV_ROUTE_RTOL = 1e-4
+# the split kernel's bytes a value: reads it (4), writes hi (4) and the pair (8)
+CONV_SPLIT_BYTES = 16
+
+
+def conv_route_calls(model, fn):
+    """fn() with a forward pre-hook on each of model's ops.Conv2d modules;
+    returns fn's result and the number of calls the route's rule admits
+    (f32, MIN_CHANNELS in and out, wider than 1x1 or MIN_1X1_OUT outputs,
+    MIN_FLOP operations as the caller sees the shapes)."""
+    from loco_edit_tpu_torch.ops import conv
+
+    routed = []
+
+    def pre(mod, args):
+        x = args[0]
+        o, c, kh, kw = mod.weight.shape
+        ho = (x.shape[2] + 2 * mod.padding[0] - kh) // mod.stride[0] + 1
+        wo = (x.shape[3] + 2 * mod.padding[1] - kw) // mod.stride[1] + 1
+        flop = 2.0 * x.shape[0] * ho * wo * o * c * kh * kw
+        if (x.dtype == torch.float32 and min(o, c) >= conv.MIN_CHANNELS
+                and (kh * kw > 1 or o >= conv.MIN_1X1_OUT) and flop >= conv.MIN_FLOP):
+            routed.append(tuple(x.shape))
+
+    hooks = [m.register_forward_pre_hook(pre) for m in model.modules()
+             if isinstance(m, conv.Conv2d)]
+    try:
+        out = fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, len(routed)
+
+
+def conv_route_path(name, model, fn, passes, seen):
+    """One main path of the route: fn() with split_cuda.launches set to 0
+    just before and read just after, held to the rule's routed calls times
+    the path's passes (1 a forward; 2 a jvp or vjp: the primal, then the
+    tangent or the input gradient); its output against the route off
+    within CONV_ROUTE_RTOL. The activation shapes the kernel was handed
+    (and whether channels_last) are added to `seen`."""
+    from loco_edit_tpu_torch.ops import conv
+
+    split = conv.split
+
+    def recording(t, chunks=1):
+        seen.add((tuple(t.shape), t.is_contiguous(memory_format=torch.channels_last), chunks))
+        return split(t, chunks)
+
+    conv.split = recording
+    conv.split_cuda.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, routed = conv_route_calls(model, fn)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        conv.split = split
+    launches = conv.split_cuda.launches
+    takes_route = conv.takes_route
+    conv.takes_route = lambda *a: False
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = fn()
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    finally:
+        conv.takes_route = takes_route
+    err = rel_err(out, ref)
+    log(f"[16 conv route] {name}: {secs:.3f} s (f32 engines alone {ref_s:.3f} s); split "
+        f"launches {launches}, predicted {routed} routed calls x {passes} = "
+        f"{routed * passes}; against the route off {err:.3g} (tolerance {CONV_ROUTE_RTOL})")
+    if launches != routed * passes:
+        fail(f"conv route {name}: split launches {launches} != predicted {routed * passes}")
+    if err > CONV_ROUTE_RTOL:
+        fail(f"conv route {name}: {err:.3g} off the f32 engines, over {CONV_ROUTE_RTOL}")
+    return launches
+
+
+def conv_split_rows(seen):
+    """csrc/conv_split.cu against split_plain, bit for bit, at each shape
+    and number of chunks the main paths handed it (seeded data, the same
+    layout), timed beside the plain version and its bytes bound
+    (CONV_SPLIT_BYTES a value)."""
+    from loco_edit_tpu_torch.ops import conv
+
+    rows = []
+    g = torch.Generator("cuda").manual_seed(16)
+    for shape, channels_last, chunks in sorted(seen):
+        t = torch.randn(shape, device="cuda", generator=g) * 3.0
+        if channels_last:
+            t = t.contiguous(memory_format=torch.channels_last)
+        his, pair = conv.split_cuda(t, chunks)
+        hi, want_pair = conv.split_plain(t.contiguous(memory_format=torch.channels_last))
+        same = (torch.equal(pair, want_pair) and all(
+            a.shape == b.shape and torch.equal(a, b) and
+            a.is_contiguous(memory_format=torch.channels_last)
+            for a, b in zip(his, hi.chunk(chunks, dim=1))))
+        del his, pair, hi, want_pair
+        ms = cuda_ms(lambda: conv.split_cuda(t, chunks))
+        plain_ms = cuda_ms(lambda: conv.split_plain(t))
+        bound_ms, by = bound(CONV_SPLIT_BYTES * t.numel(), 0.0, "float32")
+        rows.append({"kernel": "conv_split", "dtype": "float32", "shape": list(shape),
+                     "channels_last": channels_last, "chunks": chunks, "bitwise": same,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                     "share": bound_ms / ms})
+        log(f"[16 conv route] split {tuple(shape)} {'NHWC' if channels_last else 'NCHW'} "
+            f"in {chunks}: {'the same bits' if same else 'DIFFERENT bits'}; kernel {ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms, bytes bound {bound_ms:.3f} ms "
+            f"({100 * bound_ms / ms:.0f} %)")
+        del t
+        torch.cuda.empty_cache()
+    bad = [r["shape"] for r in rows if not r["bitwise"]]
+    if bad:
+        fail(f"conv_split differs from split_plain at {bad}")
+    return rows
+
+
+def phase_conv_route():
+    """Phase 16: the 3xTF32 convolution route (ops/conv.py) on the cells'
+    main paths at full width, f32: FFHQ_P2 (a strip forward at batch 9, a
+    J.v over 5 probes and a J^T.u over 3 at batch 1), the LCM VAE decoder
+    at 512 px (a decode, a J.v over 10 probes, a J^T.u over 5) and IF-II-L
+    (a forward at batch 6, 256 px, the upscale's CFG batch); each path's
+    split launches against the rule's prediction and its output against
+    the route off; then the split kernel at every shape they gave it."""
+    from loco_edit_tpu_torch.core.device import use_full_f32
+    from loco_edit_tpu_torch.models.ifm import IFUNet, if_preset
+    from loco_edit_tpu_torch.models.registry import load_adm_denoiser
+
+    use_full_f32(torch.float32)
+    func = torch.func
+    seen, launches = set(), {}
+    g = torch.Generator().manual_seed(16)
+
+    def jvp_path(f, x, probes):
+        return lambda: func.vmap(lambda v: func.jvp(f, (x,), (v,))[1])(probes)
+
+    def vjp_path(f, x, n):
+        def run():
+            y, pull = func.vjp(f, x)
+            cot = torch.randn(n, *y.shape, device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(n))
+            return func.vmap(pull)(cot)[0]
+        return run
+
+    den = load_adm_denoiser("FFHQ_P2", dtype=torch.float32, device="cuda", seed=0)
+    p2 = den.meta["model"].requires_grad_(False).eval()
+    x1 = torch.randn(1, 256, 256, 3, generator=g).cuda()
+
+    def eps(z):
+        return p2(z, 595.0)
+
+    x9 = torch.randn(9, 256, 256, 3, generator=g).cuda()
+    with torch.no_grad():
+        launches["p2_strip_b9"] = conv_route_path("p2 strip b9", p2, lambda: eps(x9), 1, seen)
+    launches["p2_jvp_5"] = conv_route_path(
+        "p2 jvp 5", p2, jvp_path(eps, x1, torch.randn(5, *x1.shape, generator=g).cuda()), 2,
+        seen)
+    launches["p2_vjp_3"] = conv_route_path("p2 vjp 3", p2, vjp_path(eps, x1, 3), 2, seen)
+    del den, p2
+    torch.cuda.empty_cache()
+
+    dec = load_lcm_models("fp32")["decoder"].requires_grad_(False).eval()
+    z = torch.randn(1, 64, 64, 4, generator=g).cuda()
+    with torch.no_grad():
+        launches["lcm_decode"] = conv_route_path("lcm decode", dec, lambda: dec(z), 1, seen)
+    launches["lcm_decode_jvp_10"] = conv_route_path(
+        "lcm decode jvp 10", dec, jvp_path(dec, z, torch.randn(10, *z.shape, generator=g).cuda()),
+        2, seen)
+    launches["lcm_decode_vjp_5"] = conv_route_path("lcm decode vjp 5", dec,
+                                                   vjp_path(dec, z, 5), 2, seen)
+    del dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = if_preset("IF-II-L", dtype=torch.float32)
+    with torch.device("cuda"):
+        m2 = IFUNet(cfg)
+    m2.init_random_(torch.Generator("cuda").manual_seed(3))
+    m2.requires_grad_(False).eval()
+    x6 = torch.randn(6, cfg.sample_size, cfg.sample_size, cfg.in_channels, generator=g).cuda()
+    ctx = torch.randn(6, 77, cfg.encoder_hid_dim, generator=g).cuda()
+    with torch.no_grad():
+        launches["if_ii_l_b6"] = conv_route_path(
+            "IF-II-L b6", m2, lambda: m2(x6, 500.0, ctx, 250.0), 1, seen)
+    del m2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return conv_split_rows(seen), launches
+
+
+def summarize_conv_split(rows, launches):
+    """The kernels-line entry of the split kernel: its rows (one a shape the
+    main paths gave it) and its launches by path."""
+    return {"name": "conv_split", "route": "cuda",
+            "source": "loco_edit_tpu_torch/csrc/conv_split.cu", "replaces": None,
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": 0.0, "rows": rows}
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ranks", type=int, default=0,
                     help="run phases 1 and 15 alone over this many ranks")
+    ap.add_argument("--conv_route", action="store_true",
+                    help="run phases 1 and 16 alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -3079,6 +3290,15 @@ def main(argv=None) -> int:
             phase_mesh(work_dir, world=args.ranks)
         log(f"[15 mesh] phase: {time.perf_counter() - t_start:.1f} s with the build")
         print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.conv_route:
+        split_rows, split_launches = phase_conv_route()
+        log(f"[16 conv route] phase: {time.perf_counter() - t_start:.1f} s with the build")
+        print(smi)
+        print(json.dumps({"kernels": [summarize_conv_split(split_rows, split_launches)]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3181,6 +3401,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work_dir:
         mesh_paths = phase_mesh(work_dir)
     log(f"[15 mesh] phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    split_rows, split_launches = phase_conv_route()
+    log(f"[16 conv route] phase: {time.perf_counter() - t0:.1f} s")
 
     paths = {"p2_flagship": p2_launches, "ddpm_cli_edit": edit_launches,
              "ddpm_cli_group_edit": group_launches, "sd_cli_edit": sd_edit,
@@ -3203,6 +3428,7 @@ def main(argv=None) -> int:
                         {k: v["groupnorm_sums"] for k, v in mesh_paths.items()}),
         summarize_split(rows, "groupnorm_apply",
                         {k: v["groupnorm_apply"] for k, v in mesh_paths.items()}),
+        summarize_conv_split(split_rows, split_launches),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

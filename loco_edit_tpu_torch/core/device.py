@@ -54,6 +54,21 @@ def use_full_f32(dtype: torch.dtype = torch.float32) -> None:
     fixed-shape training run's first step; a caller that changes the
     image size on every request pays it once a size.
 
+    Under these flags the models' float32 convolutions on the card (their
+    `ops.Conv2d`, groups 1) of 25 GFLOP and more, with 8 channels or more
+    in and out and a kernel wider than 1x1 (or 256 outputs or more), leave
+    full-f32 cuDNN for an exact-f32 route on the TF32 tensor cores
+    (ops/conv.py): each operand split into a TF32-rounded high part and its
+    exact f32 remainder, the three products that carry f32 accuracy
+    (hi*hi + hi*lo + lo*hi, short of lo*lo, 2^-22 of a product) as two TF32
+    cuDNN convolutions summed in f32, hi*hi's depth cut into chunks of at
+    most MAX_DEPTH products, each with its own accumulator, so that the
+    tensor cores' truncated sums stay near f32's own rounding. The rule is
+    one of shapes, read off measured tables (docs/CONV_3XTF32.md); smaller
+    convolutions stay here (the route's host cost outweighs its saving).
+    Only the route's calls allow TF32, through their own argument; the
+    flags here stay as set.
+
     Process-wide, as the flags are; a bf16 dtype leaves all of them as
     they are."""
     if dtype == torch.float32:

@@ -35,7 +35,7 @@ from loco_edit_tpu_torch.models.adm.config import (
     adm_layout,
 )
 from loco_edit_tpu_torch.models.base import init_random_weights_
-from loco_edit_tpu_torch.ops import group_norm_f32, sdp_attention
+from loco_edit_tpu_torch.ops import Conv2d, group_norm_f32, sdp_attention
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -66,9 +66,9 @@ class GroupNorm32(nn.Module):
 
 
 def _conv(in_ch: int, out_ch: int, cfg: ADMConfig, kernel: int = 3,
-          stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2,
-                     dtype=cfg.dtype)
+          stride: int = 1) -> Conv2d:
+    return Conv2d(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2,
+                  dtype=cfg.dtype)
 
 
 def _upsample_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from loco_edit_tpu_torch.models.base import init_random_weights_
-from loco_edit_tpu_torch.ops import group_norm_f32, sdp_attention
+from loco_edit_tpu_torch.ops import Conv2d, group_norm_f32, sdp_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,10 +80,9 @@ class Norm(nn.Module):
 
 
 def _conv(in_ch: int, out_ch: int, dtype: torch.dtype, kernel: int = 3,
-          stride: int = 1, padding: int | None = None) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
-                     padding=kernel // 2 if padding is None else padding,
-                     dtype=dtype)
+          stride: int = 1, padding: int | None = None) -> Conv2d:
+    return Conv2d(in_ch, out_ch, kernel, stride=stride,
+                  padding=kernel // 2 if padding is None else padding, dtype=dtype)
 
 
 class ResnetBlock(nn.Module):

@@ -35,7 +35,7 @@ from loco_edit_tpu_torch.core.device import to_device
 from loco_edit_tpu_torch.models.adm.unet import timestep_embedding
 from loco_edit_tpu_torch.models.base import init_random_weights_
 from loco_edit_tpu_torch.models.sd.config import SDUNetConfig, check_no_remat
-from loco_edit_tpu_torch.ops import group_norm_f32, sdp_attention
+from loco_edit_tpu_torch.ops import Conv2d, group_norm_f32, sdp_attention
 
 
 class GroupNormF32(nn.Module):
@@ -52,9 +52,9 @@ class GroupNormF32(nn.Module):
 
 
 def _conv(in_ch: int, out_ch: int, dtype: torch.dtype, kernel: int = 3,
-          stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2,
-                     dtype=dtype)
+          stride: int = 1) -> Conv2d:
+    return Conv2d(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2,
+                  dtype=dtype)
 
 
 def to_tokens(x: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ from torch import nn
 from loco_edit_tpu_torch.models.base import init_random_weights_
 from loco_edit_tpu_torch.models.sd.config import VAEConfig, check_no_remat
 from loco_edit_tpu_torch.models.sd.unet import GroupNormF32, _conv, from_tokens, to_tokens
-from loco_edit_tpu_torch.ops import sdp_attention
+from loco_edit_tpu_torch.ops import Conv2d, sdp_attention
 
 
 def _gn(ch: int) -> GroupNormF32:
@@ -95,7 +95,7 @@ class VAEEncoder(_VAEPart):
                 ch = out_ch
             if i != len(chs) - 1:
                 self.add_module(f"down_{i}_downsample",
-                                nn.Conv2d(ch, ch, 3, stride=2, padding=0, dtype=dt))
+                                Conv2d(ch, ch, 3, stride=2, padding=0, dtype=dt))
         self.mid_res_0 = VAEResnet(ch, ch, dt)
         self.mid_attn = VAEAttention(ch, dt)
         self.mid_res_1 = VAEResnet(ch, ch, dt)

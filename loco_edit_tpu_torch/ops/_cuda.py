@@ -44,6 +44,7 @@ _SIGNATURES = {
                               _I, _I, _P],
     "loco_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 12
                             + [_F, _I, _P],
+    "loco_conv_split": [_P, _P, _P, _L, _L, _L, _P],
 }
 
 

@@ -8,10 +8,11 @@ the input's sharding and XLA inserts the collectives. Here `sp_denoiser`
 gives each rank its band of rows and runs the model under `sp_context`,
 where the port writes those collectives itself:
 
-  - 3x3 convolutions (stride 1 and 2) and the DDPM downsample's asymmetric
-    pad take halo rows from the neighbouring ranks (collectives.halo_pad)
-    in place of zero padding in the height; the nearest upsample and the
-    average pool are local;
+  - 3x3 convolutions (stride 1 and 2; `torch.conv2d`, and the models'
+    `ops.conv2d`, which routes f32 ones on the card) and the DDPM
+    downsample's asymmetric pad take halo rows from the neighbouring ranks
+    (collectives.halo_pad) in place of zero padding in the height; the
+    nearest upsample and the average pool are local;
   - GroupNorm (ops/norms.py) is given the group: it runs the kernel's
     statistics pass, all-reduces the sums and runs its normalize pass with
     the whole image's statistics;
@@ -33,7 +34,7 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from loco_edit_tpu_torch.core.mesh import Mesh, make_mesh, world_size
-from loco_edit_tpu_torch.ops import group_norm_f32, sdp_attention
+from loco_edit_tpu_torch.ops import conv2d, group_norm_f32, sdp_attention
 from loco_edit_tpu_torch.parallel.collectives import (all_gather, gather_replicated,
                                                       halo_pad, take_shard)
 
@@ -60,8 +61,8 @@ class _SPMode(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func is torch.conv2d:
-            return self._conv2d(*args, **kwargs)
+        if func is torch.conv2d or func is conv2d:
+            return self._conv2d(func, *args, **kwargs)
         if func is F.pad:
             return self._pad(*args, **kwargs)
         if func is group_norm_f32:
@@ -71,14 +72,14 @@ class _SPMode(TorchFunctionMode):
             return func(q, all_gather(k, 2, self.group), all_gather(v, 2, self.group))
         return func(*args, **kwargs)
 
-    def _conv2d(self, x, weight, bias=None, stride=1, padding=0, dilation=1,
+    def _conv2d(self, conv, x, weight, bias=None, stride=1, padding=0, dilation=1,
                 groups=1):
         if isinstance(padding, str):
             raise NotImplementedError(f"spatial parallelism: conv2d padding={padding!r}")
         ph, pw = _pair(padding)
         if ph:
             x = halo_pad(x, ph, ph, self.group)
-        return torch.conv2d(x, weight, bias, stride, (0, pw), dilation, groups)
+        return conv(x, weight, bias, stride, (0, pw), dilation, groups)
 
     def _pad(self, x, pad, mode="constant", value=None):
         if x.dim() == 4 and len(pad) >= 4 and (pad[2] or pad[3]):

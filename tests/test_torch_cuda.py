@@ -798,3 +798,174 @@ def test_tiny_served_edit_on_card_launches_both_kernels(tmp_path):
         assert inv["shape"] == [1, 32, 32, 3]
     finally:
         srv.shutdown()
+
+
+# -- the 3xTF32 convolution route (ops/conv.py) -------------------------------
+
+
+@pytest.mark.parametrize("shape, channels_last, chunks", [
+    ((2, 3, 7, 5), True, 1),        # rows of 3: one value a step
+    ((2, 64, 16, 16), True, 1),     # 16-byte vectors
+    ((2, 64, 16, 16), True, 4),     # chunks of 16 channels
+    ((2, 64, 16, 16), False, 2),    # NCHW in: copied to channels_last
+    ((3, 6, 3, 3), False, 3),       # chunks of 2 channels: one value a step
+])
+def test_split_kernel_matches_plain(shape, channels_last, chunks):
+    """csrc/conv_split.cu against ops/conv.py::split_plain, bit for bit, in
+    the layout the route hands cuDNN: hi in runs of the channels, each a
+    channels_last tensor of its own, and the pair [hi, lo]."""
+    _card()
+    from loco_edit_tpu_torch.ops.conv import split_cuda, split_plain
+
+    t = torch.randn(shape, generator=torch.Generator().manual_seed(8)) * 3.0
+    if channels_last:
+        t = t.contiguous(memory_format=torch.channels_last)
+    his, pair = split_cuda(t.cuda(), chunks)
+    torch.cuda.synchronize()
+    hi, want_pair = split_plain(t)
+    assert len(his) == chunks
+    for got, want in zip(his, hi.chunk(chunks, dim=1)):
+        assert got.shape == want.shape and torch.equal(got.cpu(), want)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(pair.cpu(), want_pair)
+    assert pair.is_contiguous(memory_format=torch.channels_last)
+
+
+def _flags_f32():
+    b = torch.backends
+    return b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32
+
+
+def test_if_ii_l_convolution_takes_the_3xtf32_route():
+    """An IF-II-L convolution of the upscale (batch 6 = 3 frames x 2 CFG
+    variants, 256 -> 256, 3x3 at 256 x 256) under the f32 policy takes the
+    3xTF32 route (the recorder counts its operations in conv_tc_gflop),
+    matches a float64 CPU convolution within 3e-5 of the largest output,
+    and leaves the process's TF32 flags off. f32 FMA sums of 2304 products
+    land near 2e-6, the tensor cores' truncated sums in one accumulator
+    near 7e-6 (ops/conv.py), TF32-rounded operands near 3e-4."""
+    _card()
+    from loco_edit_tpu_torch.core.device import use_full_f32
+    from loco_edit_tpu_torch.ops import conv
+    from loco_edit_tpu_torch.utils.logger import start_recording, stop_recording
+
+    use_full_f32(torch.float32)
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(6, 256, 256, 256, generator=g).contiguous(memory_format=torch.channels_last)
+    w, b = torch.randn(256, 256, 3, 3, generator=g) / 48.0, torch.randn(256, generator=g)
+    xc, wc, bc = x.cuda(), torch.nn.Parameter(w.cuda()), b.cuda()
+    start_recording()
+    try:
+        with torch.no_grad():
+            y = conv.conv2d(xc, wc, bc, 1, 1)
+        torch.cuda.synchronize()
+    finally:
+        rec = stop_recording()
+    counts = rec.counts[None]
+    gflop = 2 * 6 * 256 * 256 * 256 * 256 * 9 / 1e9
+    assert counts["conv_gflop"] == counts.get("conv_tc_gflop") == pytest.approx(gflop), counts
+    assert _flags_f32() == (False, False)
+    want = torch.nn.functional.conv2d(x[:1].double(), w.double(), b.double(), padding=1)
+    err = _rel(y[:1], want)
+    print(f"IF-II-L 256->256 3x3 at 256x256 b6: 3xTF32 against f64 {err:.3g}, "
+          f"{conv.chunks(256, 9)} chunks")
+    assert err <= 3e-5
+
+
+def test_route_rules_on_card_match_float64(monkeypatch):
+    """The route's rules on the card, every call on 3xTF32 (its size floor
+    set aside), at a P2-like basis shape (96 -> 96, 3x3 at 256 x 256, one
+    image, 3 probes): the forward, vmap(jvp) with the probes folded into
+    the batch and vmap(vjp) through ConvInputGradFn (on autograd's thread),
+    each within 1e-5 of the largest output of a float64 CPU computation;
+    the three calls counted once each in the request; the process's TF32
+    flags stay off."""
+    _card()
+    from loco_edit_tpu_torch.core.device import use_full_f32
+    from loco_edit_tpu_torch.ops import conv
+    from loco_edit_tpu_torch.ops.conv import Conv2d
+    from loco_edit_tpu_torch.utils.logger import span, start_recording, stop_recording
+
+    monkeypatch.setattr(conv, "MIN_FLOP", 0)
+    use_full_f32(torch.float32)
+    torch.manual_seed(10)
+    m = Conv2d(96, 96, 3, padding=1).requires_grad_(False)
+    cpu = torch.nn.Conv2d(96, 96, 3, padding=1).double().requires_grad_(False)
+    cpu.load_state_dict({k: v.double() for k, v in m.state_dict().items()})
+    m = m.cuda()
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(1, 96, 256, 256, generator=g).contiguous(memory_format=torch.channels_last)
+    probes = torch.randn(3, *x.shape, generator=g)
+    def passes(f, x0, v):
+        """f(x0), the tangents of f at x0 along v's rows, and the
+        cotangents of v's rows."""
+        tangents = torch.func.vmap(lambda t: torch.func.jvp(f, (x0,), (t,))[1])(v)
+        _, vjp_fn = torch.func.vjp(f, x0)
+        return [f(x0), tangents, torch.func.vmap(vjp_fn)(v)[0]]
+
+    start_recording()
+    try:
+        with span("request"):
+            got = passes(m, x.cuda(), probes.cuda())
+            torch.cuda.synchronize()
+    finally:
+        rec = stop_recording()
+    want = passes(cpu, x.double(), probes.double())
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-5
+    # the forward, jvp's primal and vjp's primal; not the tangent or input gradient
+    (counts,) = [c for r, c in rec.counts.items() if r is not None]
+    gflop = 3 * 2 * 256 * 256 * 96 * 96 * 9 / 1e9
+    assert counts["conv_gflop"] == counts.get("conv_tc_gflop") == pytest.approx(gflop), counts
+    assert _flags_f32() == (False, False)
+
+
+def test_f32_p2_eps_on_the_route_keeps_the_full_f32_bound(monkeypatch):
+    """The full-width f32 FFHQ_P2 eps, card against CPU, relative to its
+    largest value, with every convolution of 8 channels or more on 3xTF32
+    (the size floor and the 1x1 rule set aside: at batch 1 most of P2's
+    convolutions stay with PyTorch), with the route off (full-f32
+    cuDNN alone) and with TF32 convolutions: 3xTF32 stays within
+    F32_P2_RTOL, as full f32 does; TF32 does not. The three readings are
+    printed."""
+    _card()
+    from loco_edit_tpu_torch.models.registry import load_adm_denoiser
+    from loco_edit_tpu_torch.ops import conv
+    from loco_edit_tpu_torch.utils.logger import start_recording, stop_recording
+
+    den = load_adm_denoiser("FFHQ_P2", dtype=torch.float32, device="cuda", seed=0)
+    model = den.meta["model"]
+    with torch.device("cpu"):
+        cpu = type(model)(model.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.randn(1, 256, 256, 3, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = cpu.requires_grad_(False).eval()(x, 595.0)
+        start_recording()
+        try:
+            with monkeypatch.context() as mp:
+                mp.setattr(conv, "MIN_FLOP", 0)
+                mp.setattr(conv, "MIN_1X1_OUT", 0)
+                route = _rel(model(x.cuda(), 595.0), want)
+        finally:
+            rec = stop_recording()
+        with monkeypatch.context() as mp:
+            mp.setattr(conv, "takes_route", lambda *a: False)
+            full = _rel(model(x.cuda(), 595.0), want)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = _rel(model(x.cuda(), 595.0), want)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    counts = rec.counts[None]
+    print(f"FFHQ_P2 f32 eps against the CPU: route {route:.3g} "
+          f"({counts.get('conv_tc_gflop', 0):.2f} of {counts['conv_gflop']:.2f} GFLOP "
+          f"3xTF32), full f32 {full:.3g}, TF32 {tf32:.3g}")
+    # all but the 3- and 6-channel ends
+    ends = [m for m in model.modules() if isinstance(m, conv.Conv2d) and min(m.weight.shape[:2]) < 8]
+    end_gflop = sum(conv.gemm_flop((1, m.in_channels, 256, 256), m.weight.shape,
+                                   conv.Geometry(m.stride, m.padding, m.dilation))
+                    for m in ends) / 1e9
+    assert len(ends) == 2
+    assert counts["conv_tc_gflop"] == pytest.approx(counts["conv_gflop"] - end_gflop)
+    assert route <= F32_P2_RTOL and full <= F32_P2_RTOL < tf32
